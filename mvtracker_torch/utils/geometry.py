@@ -1,0 +1,94 @@
+"""Camera geometry (L0), counterpart of `mvtracker_tpu/utils/geometry.py`.
+
+Conventions are the JAX package's:
+- intrinsics ``K``: [..., 3, 3]; the centre of the top-left pixel is (0, 0);
+- extrinsics ``E``: [..., 3, 4] world->camera;
+- a depth map sampled with stride ``s`` places cell (i, j) at pixel
+  ``((j + 0.5) * s - 0.5, (i + 0.5) * s - 0.5)``.
+
+Matrix inverses run in float32 whatever the input dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def to_homogeneous(x: torch.Tensor) -> torch.Tensor:
+    """Append a constant 1 to the last axis. [..., D] -> [..., D+1]."""
+    return torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
+
+
+def extrinsics_square(extrs: torch.Tensor) -> torch.Tensor:
+    """Pad [..., 3, 4] world->camera extrinsics to a square [..., 4, 4]."""
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=extrs.dtype, device=extrs.device)
+    bottom = bottom.expand(*extrs.shape[:-2], 1, 4)
+    return torch.cat([extrs, bottom], dim=-2)
+
+
+def invert_intrinsics(intrs: torch.Tensor) -> torch.Tensor:
+    """Invert [..., 3, 3] intrinsics in float32, cast back to the input dtype."""
+    return torch.linalg.inv(intrs.float()).to(intrs.dtype)
+
+
+def invert_extrinsics(extrs: torch.Tensor) -> torch.Tensor:
+    """Invert [..., 3, 4] world->camera extrinsics to [..., 4, 4] camera->world."""
+    return torch.linalg.inv(extrinsics_square(extrs).float()).to(extrs.dtype)
+
+
+def pixel_grid(height: int, width: int, stride: int, device=None) -> torch.Tensor:
+    """Pixel-centre coordinates of a strided sampling grid, xy order: [H, W, 2]."""
+    ys = (torch.arange(height, dtype=torch.float32, device=device) + 0.5) * stride - 0.5
+    xs = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) * stride - 0.5
+    yy, xx = torch.meshgrid(ys, xs, indexing="ij")
+    return torch.stack([xx, yy], dim=-1)
+
+
+def nearest_downsample_2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest 2x downsample over the last two axes (even indices)."""
+    return x[..., ::2, ::2]
+
+
+def unproject_depth_to_world(
+    depths: torch.Tensor,  # [*B, H, W]
+    intrs_inv: torch.Tensor,  # [*B, 3, 3]
+    extrs_inv: torch.Tensor,  # [*B, 4, 4]
+    stride: int,
+) -> torch.Tensor:
+    """Unproject a (strided) depth map to world xyz per pixel: [*B, H, W, 3]."""
+    h, w = depths.shape[-2:]
+    grid_h = to_homogeneous(pixel_grid(h, w, stride, depths.device).to(depths.dtype))
+    cam = torch.einsum("...ij,hwj->...hwi", intrs_inv, grid_h)
+    cam = cam * depths[..., None]
+    world_h = torch.einsum("...ij,...hwj->...hwi", extrs_inv, to_homogeneous(cam))
+    return world_h[..., :3]
+
+
+def init_pointcloud_from_rgbd(
+    fmaps: torch.Tensor,  # [B, V, S, H, W, C] channels-last
+    depths: torch.Tensor,  # [B, V, S, H, W]
+    intrs: torch.Tensor,  # [B, V, S, 3, 3]
+    extrs: torch.Tensor,  # [B, V, S, 3, 4]
+    stride: int = 4,
+    level: int = 0,
+):
+    """Fuse per-view feature maps and depths into one world-space feature
+    cloud per (batch, frame) at pyramid `level`.
+
+    Features are 2x2 average-pooled and depths nearest-downsampled `level`
+    times. Returns xyz [B*S, V*H'*W', 3] and fvec [B*S, V*H'*W', C], flattened
+    as (B, S) across clouds and (V, H, W) within one, like the JAX package.
+    """
+    b, v, s, h, w, c = fmaps.shape
+    if depths.shape != (b, v, s, h, w):
+        raise ValueError(f"depths {tuple(depths.shape)} do not match fmaps {tuple(fmaps.shape)}")
+    for _ in range(level):
+        fmaps = fmaps.reshape(b, v, s, h // 2, 2, w // 2, 2, c).mean(dim=(4, 6))
+        depths = nearest_downsample_2x(depths)
+        h, w = h // 2, w // 2
+    world = unproject_depth_to_world(
+        depths, invert_intrinsics(intrs), invert_extrinsics(extrs), stride * 2**level
+    )
+    xyz = world.permute(0, 2, 1, 3, 4, 5).reshape(b * s, v * h * w, 3)
+    fvec = fmaps.permute(0, 2, 1, 3, 4, 5).reshape(b * s, v * h * w, c)
+    return xyz, fvec
