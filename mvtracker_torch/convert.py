@@ -5,6 +5,10 @@
   state dict for `mvtracker_torch.models.mvtracker.MVTracker`. The port's
   module names are the reference torch model's, so the JAX package's own
   `convert_reference_state_dict` maps the result straight back.
+  The mapping is a fixed re-layout, so it carries any tree of that
+  structure: a gradient tree, or AdamW's `mu` and `nu`.
+- `opt_state_from_optax(opt_state)`: the optax state of the JAX package's
+  optimizer -> the state of `mvtracker_torch.training.step.Optimizer`.
 - `random_state_dict(model, seed)`: seeded numpy weights with the
   distributions flax initializes the JAX model with, for runs that need a
   model but no checkpoint.
@@ -102,7 +106,29 @@ def params_from_flax(params) -> dict[str, torch.Tensor]:
     sd.update(_norm(p["ffeats_norm"], "ffeats_norm"))
     sd.update(_dense(p["ffeats_updater"], "ffeats_updater.0"))
     sd.update(_dense(p["vis_predictor"], "vis_predictor.0"))
-    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in sd.items()}
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def opt_state_from_optax(opt_state) -> dict:
+    """The optax state of `mvtracker_tpu.training.step.make_optimizer` (a
+    nested tuple whose AdamW part has `count`, `mu` and `nu`; arrays as
+    numpy) -> {"count", "mu", "nu"} with `mu` and `nu` under the port's
+    parameter names."""
+
+    def find(node):
+        if hasattr(node, "mu") and hasattr(node, "nu"):
+            return node
+        if isinstance(node, (tuple, list)):
+            for child in node:
+                hit = find(child)
+                if hit is not None:
+                    return hit
+        return None
+
+    adam = find(opt_state)
+    if adam is None:
+        raise ValueError("opt_state_from_optax: no Adam state (count, mu, nu) in the given optimizer state")
+    return {"count": int(adam.count), "mu": params_from_flax(adam.mu), "nu": params_from_flax(adam.nu)}
 
 
 def _truncated_normal(rng, shape, std):

@@ -9,6 +9,12 @@
 // kernel's -1 padding). Inputs are fp32 or bf16, both of the same type;
 // the output is fp32.
 //
+// The kernel sits inside the autograd function `CorrSelect`
+// (`ops/corr.py`): that function is handed the uncast tensors, casts both to
+// the compute type and calls this kernel, so the cast happens inside the
+// differentiated function as in the JAX package's `custom_vjp`. Its backward
+// is `csrc/corr_bwd.cu`.
+//
 // What bounds it on the card: memory. Each output needs one row of C
 // features gathered from a cloud of P rows and C multiply-adds, so the
 // work is a few hundred operations per 256-byte row (bf16, C = 128): far

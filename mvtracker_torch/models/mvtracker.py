@@ -16,6 +16,13 @@ package's: rgbs [V,T,H,W,3] in 0..255, depths [V,T,H,W], query_points
 [N,4] (t, x, y, z), intrs [V,T,3,3], extrs [V,T,3,4]; out traj [T,N,3] and
 vis [T,N].
 
+With `is_train=True` the forward keeps the autograd graph and also returns
+`train_data`, the per-window predictions the losses need. Gradients flow
+where they flow in the JAX module and nowhere else: the coords are detached
+at the top of every refinement iteration, while the position embedding is
+built from the undetached initial coords, and a chained window starts from
+the previous window's undetached last prediction and visibility logits.
+
 Precision follows the JAX module: with compute_dtype="bfloat16" the
 encoder and the transformer run bf16 products with fp32 parameters, the
 softmax runs in fp32, the cloud features are stored bf16 and the
@@ -25,10 +32,13 @@ features stay fp32.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mvtracker_torch.device import resolve_device
 from mvtracker_torch.models.encoder import BasicEncoder
@@ -51,7 +61,6 @@ _NOT_PORTED = {
     "normalize_scene_in_fwd_pass": False,
     "use_point_transformer": False,
     "knn_mesh": None,
-    "remat": False,
     "collect_stats": False,
     "support_memory_tokens": 0,
     "corr_neighbors_per_level": None,
@@ -91,6 +100,9 @@ class MVTracker(nn.Module):
         corr_add_neighbor_xyz: bool = False,
         flow_embed_dim: int = 64,
         compute_dtype: str = "float32",
+        remat: bool = False,
+        remat_encoder: bool = True,
+        knn_backend: str = "auto",
         device="cuda",
         **not_ported,
     ):
@@ -113,6 +125,15 @@ class MVTracker(nn.Module):
         self.corr_add_neighbor_xyz = corr_add_neighbor_xyz
         self.flow_embed_dim = flow_embed_dim
         self.dtype = _DTYPES[compute_dtype]
+        # Recompute activations in the backward instead of keeping them: the
+        # update transformer with `remat`, the encoder too with
+        # `remat_encoder` (the JAX module's meaning of both flags). The kNN
+        # and the correlation sit outside and run once per step either way.
+        self.remat = remat
+        self.remat_encoder = remat_encoder
+        if knn_backend not in knn_ops.BACKENDS:
+            raise ValueError(f"knn_backend must be one of {knn_ops.BACKENDS}, got {knn_backend!r}")
+        self.knn_backend = knn_backend  # which kNN kernel serves CUDA tensors, see `ops/knn.py`
 
         self.fnet = BasicEncoder(output_dim=fmaps_dim, stride=stride, dtype=self.dtype, device=device)
         self.updateformer = EfficientUpdateFormer(
@@ -158,8 +179,16 @@ class MVTracker(nn.Module):
         """[V, T, H, W, 3] in 0..255 -> [V, T, H/s, W/s, C] fp32, all frames at once."""
         v, t, h, w, _ = rgbs.shape
         x = 2.0 * (rgbs.reshape(v * t, h, w, 3).float() / 255.0) - 1.0
-        fmaps = self.fnet(x.permute(0, 3, 1, 2))  # NCHW
+        fmaps = self._maybe_remat(self.remat_encoder, self.fnet, x.permute(0, 3, 1, 2))  # NCHW
         return fmaps.permute(0, 2, 3, 1).reshape(v, t, h // self.stride, w // self.stride, self.fmaps_dim)
+
+    def _maybe_remat(self, enabled: bool, module: nn.Module, *args, **kwargs):
+        """Call `module`, rematerialised in the backward when `remat` and
+        `enabled` are set and a graph is being recorded. The model draws no
+        random numbers (no dropout), so the generator state is not saved."""
+        if self.remat and enabled and torch.is_grad_enabled():
+            return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
+        return module(*args, **kwargs)
 
     def _build_context(self, fmaps, depths_strided, intrs, extrs):
         """Per-level fused clouds: list of (xyz [T, P_l, 3], fvec [T, P_l, C])."""
@@ -180,7 +209,7 @@ class MVTracker(nn.Module):
         t = cloud0_xyz.shape[0]
         n = query_xyz.shape[0]
         queries = query_xyz[None].expand(t, n, 3)
-        _, idx = knn_ops.knn(cloud0_xyz, queries, 1)
+        _, idx = knn_ops.knn(cloud0_xyz, queries, 1, backend=self.knn_backend)
         fvec = corr_ops.gather_neighbors(cloud0_fvec, idx)[:, :, 0]  # [T, N, C]
         qt = query_t.clamp(0, t - 1)
         return fvec[qt, torch.arange(n, device=fvec.device)]
@@ -201,13 +230,13 @@ class MVTracker(nn.Module):
         idx = {}
         for lvl in levels:
             if not (batched and lvl in small):
-                idx[lvl] = knn_ops.knn(context_w[lvl][0], coords, k)[1]
+                idx[lvl] = knn_ops.knn(context_w[lvl][0], coords, k, backend=self.knn_backend)[1]
         if batched:
             pmax = max(context_w[lvl][0].shape[1] for lvl in small)
             refs = torch.cat(
                 [F.pad(context_w[lvl][0], (0, 0, 0, pmax - context_w[lvl][0].shape[1]), value=1e9) for lvl in small]
             )
-            i_all = knn_ops.knn(refs, coords.repeat(len(small), 1, 1), k)[1]
+            i_all = knn_ops.knn(refs, coords.repeat(len(small), 1, 1), k, backend=self.knn_backend)[1]
             for j, lvl in enumerate(small):
                 idx[lvl] = i_all[j * s : (j + 1) * s]
         return idx
@@ -242,7 +271,13 @@ class MVTracker(nn.Module):
 
     def forward_iteration(self, context_w, coords_init, vis_init, track_mask, active, feat_init, iters: int):
         """Iterative refinement within one window. Returns (list of coords
-        [S, N, 3] per iteration, vis logits [S, N])."""
+        [S, N, 3] per iteration, vis logits [S, N]).
+
+        As in the JAX module, `pos_embed` sees the undetached `coords_init`
+        (so a chained window sends gradient to the previous one through it
+        and through `vis_init`), the coords are detached at the top of every
+        iteration, and each prediction is the detached coords plus this
+        iteration's delta."""
         s, n, _ = coords_init.shape
         d_in = self.updateformer_input_dim
         embed_dim = d_in if d_in % 6 == 0 else d_in + 6 - d_in % 6
@@ -256,11 +291,12 @@ class MVTracker(nn.Module):
         mask_and_vis = torch.stack([track_mask, vis_init], dim=-1)
         preds = []
         for _ in range(iters):
+            coords = coords.detach()
             fcorrs = self._corr_features(context_w, coords, ffeats)
             flows_emb = emb.coord_embedding_3d(coords - coords[0:1], self.flow_embed_dim)
             x = torch.cat([flows_emb, fcorrs, ffeats, mask_and_vis], dim=-1)
             x = x + pos_embed[None] + times_embed[:, None]
-            delta = self.updateformer(x.permute(1, 0, 2)[None], track_mask=active[None])[0]
+            delta = self._maybe_remat(True, self.updateformer, x.permute(1, 0, 2)[None], track_mask=active[None])[0]
             delta = delta.permute(1, 0, 2)  # [S, N, 3 + C]
             coords = coords + delta[..., :3]
             ffeats = ffeats + self.ffeats_updater(self.ffeats_norm(delta[..., 3:]))
@@ -273,12 +309,22 @@ class MVTracker(nn.Module):
     # ------------------------------------------------------------------
 
     def _as_input(self, x) -> torch.Tensor:
+        # Move first, cast on the device: uint8 frames and float16 depths
+        # cross the bus at their own width.
         if not torch.is_tensor(x):
-            x = torch.from_numpy(np.array(x, dtype=np.float32))
+            x = torch.from_numpy(np.asarray(x))
         return x.to(self.device).float()
 
-    @torch.no_grad()
-    def forward(self, rgbs, depths, query_points, intrs, extrs, iters: int = 4) -> dict:
+    def forward(self, rgbs, depths, query_points, intrs, extrs, iters: int = 4, is_train: bool = False) -> dict:
+        """Track the queries through the video -> {"traj" [T, N, 3], "vis"
+        [T, N], "feat_init" [N, C]}. Serving (`is_train=False`) records no
+        autograd graph. `is_train=True` records one and adds "train_data":
+        coord_predictions [W, iters, S, N, 3], vis_predictions [W, S, N]
+        (logits), window_starts [W], window_valid [W], window_active [W, N]."""
+        with contextlib.nullcontext() if is_train else torch.no_grad():
+            return self._forward(rgbs, depths, query_points, intrs, extrs, iters, is_train)
+
+    def _forward(self, rgbs, depths, query_points, intrs, extrs, iters: int, is_train: bool) -> dict:
         rgbs, depths, query_points, intrs, extrs = map(self._as_input, (rgbs, depths, query_points, intrs, extrs))
         v, t, h, w, _ = rgbs.shape
         n = query_points.shape[0]
@@ -300,7 +346,7 @@ class MVTracker(nn.Module):
         n_wind = len(window_starts(t, s))
         n_exec = min(max((t - qt_min - 1) // hop, 1), n_wind)
 
-        all_coords, all_vis, all_active = [], [], []
+        all_coords, all_vis, all_active, all_preds, starts = [], [], [], [], []
         for wi in range(n_exec):
             w_start = qt_min + wi * hop
             is_first = wi == 0
@@ -328,6 +374,8 @@ class MVTracker(nn.Module):
                 context_w, coords_init, vis_init, track_mask, active, feat_init, iters
             )
             all_coords.append(preds[-1])
+            all_preds.append(preds)
+            starts.append(w_start)
             all_vis.append(vis_logits)
             all_active.append(active)
 
@@ -344,5 +392,19 @@ class MVTracker(nn.Module):
         active_t = all_active[w_of_t] & (t_idx >= qt_min)[:, None]
         traj = torch.where(active_t[..., None], traj, torch.zeros_like(traj))
         vis = torch.where(active_t, vis, torch.zeros_like(vis))
-        return {"traj": traj, "vis": vis, "feat_init": feat_init}
+        out = {"traj": traj, "vis": vis, "feat_init": feat_init}
+        if is_train:
+            # W counts the executed windows only, so `window_valid` is all
+            # true. The JAX module stacks its static worst-case window count
+            # and masks the rest out; the losses are masked means (an empty
+            # mask gives 0) and the mean over windows divides by the number
+            # of valid ones, so both give the same loss.
+            out["train_data"] = {
+                "coord_predictions": torch.stack([torch.stack(p) for p in all_preds]),  # [W, iters, S, N, 3]
+                "vis_predictions": all_vis,  # [W, S, N] logits
+                "window_starts": torch.tensor(starts, dtype=torch.int64, device=dev),  # [W]
+                "window_valid": torch.ones(n_exec, dtype=torch.bool, device=dev),  # [W]
+                "window_active": all_active,  # [W, N]
+            }
+        return out
 

@@ -2,8 +2,9 @@
 
 Each source is compiled by `nvcc` for Hopper (`sm_90a`) into a shared
 library with a plain C interface and loaded with `ctypes`. A library is
-built at first use and rebuilt when its source or the flags change (the
-file name carries a hash of both), so a fresh checkout builds everything
+built at first use and rebuilt when its source, a shared header
+(`csrc/*.cuh`) or the flags change (the file name carries a hash of all
+three), so a fresh checkout builds everything
 the first time a kernel is called. Nothing is built or imported when this
 module is imported: the CPU test host has no `nvcc`.
 
@@ -25,11 +26,16 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-# Each library's C entry point and its argument types: every pointer and
-# the stream as c_void_p, sizes as c_int. Set once, when the library loads.
+# Each library's C entry points and their argument types: every pointer and
+# the stream as c_void_p, sizes as c_int; all return c_int. Set once, when
+# the library loads.
+_P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRIES = {
-    "knn": ("knn_forward", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
-    "corr": ("corr_forward", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
+    "knn": {"knn_forward": [_P] * 4 + [_I] * 4 + [_P]},
+    "knn_tiled": {"knn_tiled_forward": [_P] * 6 + [_I] * 6 + [_P], "knn_tiled_blocks_per_sm": [_I]},
+    "knn_exact": {"knn_exact_forward": [_P] * 4 + [_I] * 4 + [_P]},
+    "corr": {"corr_forward": [_P] * 4 + [_I] * 6 + [_P]},
+    "corr_bwd": {"corr_backward": [_P] * 6 + [_I] * 6 + [_P]},
 }
 SOURCES = tuple(ENTRIES)
 
@@ -44,8 +50,8 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -80,17 +86,17 @@ def build_all(names=SOURCES) -> None:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, built first if needed, with
-    the signatures of its entry point (`ENTRIES`) and `mvt_error_string`."""
+    the signatures of its entry points (`ENTRIES`) and `mvt_error_string`."""
     lib = _LIBS.get(name)
     if lib is None:
         job = _start_build(name)
         if job is not None:
             _finish_build(name, job)
         lib = ctypes.CDLL(str(_library_path(name)))
-        entry, argtypes = ENTRIES[name]
-        fn = getattr(lib, entry)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
+        for entry, argtypes in ENTRIES[name].items():
+            fn = getattr(lib, entry)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
         lib.mvt_error_string.restype = ctypes.c_char_p
         lib.mvt_error_string.argtypes = [ctypes.c_int]
         _LIBS[name] = lib

@@ -5,12 +5,25 @@ correlate them with per-track target features:
 
     corr[b, m, k, g] = <target[b, m, g, :], fvec[b, idx[b, m, k], g, :]> / sqrt(C / G)
 
-The single-group case, the tracker's configuration, goes through
-`corr_select`: the CUDA kernel `csrc/corr.cu` on CUDA tensors (it replaces
-the forward of `mvtracker_tpu/ops/corr_pallas.py::corr_select_pallas`;
-design note in the source) and `corr_select_plain`, a gather and an einsum,
-on CPU tensors. Neighbour offsets ride along in the `[corr | offset | xyz]`
-layout of the JAX package.
+The single-group case, the tracker's configuration, goes through the
+`torch.autograd.Function` `CorrSelect`, the counterpart of the JAX
+package's `custom_vjp` around `corr_select_pallas`. It takes the uncast
+cloud features and targets and casts them to the compute dtype inside:
+
+- forward: `corr_select`, which is the CUDA kernel `csrc/corr.cu` on CUDA
+  tensors (it replaces the forward of
+  `mvtracker_tpu/ops/corr_pallas.py::corr_select_pallas`) and
+  `corr_select_plain`, a gather and an einsum, on CPU tensors;
+- backward: `corr_select_backward`, which is the CUDA kernel
+  `csrc/corr_bwd.cu` on CUDA tensors (it replaces `_corr_select_bwd` of the
+  same JAX module) and `corr_select_backward_plain` on CPU tensors. It
+  works in fp32 on the uncast tensors the forward was given and returns
+  each gradient in its tensor's own dtype, as the JAX backward does.
+
+Design notes are in the kernel sources. For CUDA tensors the kernels are
+launched or an error is raised; the plain versions serve CPU tensors only.
+Neighbour offsets ride along in the `[corr | offset | xyz]` layout of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -46,11 +59,13 @@ def grouped_correlation(targets: torch.Tensor, neighbor_fvec: torch.Tensor, grou
 
 def corr_select_plain(fvec: torch.Tensor, targets: torch.Tensor, idx: torch.Tensor):
     """Plain version of the kernel: [B, P, C], [B, N, C], [B, N, K] ->
-    [B, N, K] fp32, unscaled; an index outside [0, P) gives 0."""
+    [B, N, K] fp32 (float64 for float64 inputs), unscaled; an index outside
+    [0, P) gives 0."""
     p = fvec.shape[1]
+    acc = torch.promote_types(torch.float32, torch.promote_types(fvec.dtype, targets.dtype))
     valid = (idx >= 0) & (idx < p)
     rows = gather_neighbors(fvec, torch.where(valid, idx, torch.zeros_like(idx)))
-    corr = torch.einsum("bnc,bnkc->bnk", targets.float(), rows.float())
+    corr = torch.einsum("bnc,bnkc->bnk", targets.to(acc), rows.to(acc))
     return torch.where(valid, corr, torch.zeros_like(corr))
 
 
@@ -100,6 +115,86 @@ def corr_select_cuda(fvec: torch.Tensor, targets: torch.Tensor, idx: torch.Tenso
 corr_select_cuda.launches = 0
 
 
+def corr_select_backward_plain(fvec: torch.Tensor, targets: torch.Tensor, idx: torch.Tensor, g: torch.Tensor):
+    """Plain version of the backward kernel. With corr = `corr_select_plain`
+    and g = d loss / d corr [B, N, K]:
+
+        d_targets[b, n] = sum_k g[b, n, k] * fvec[b, idx[b, n, k]]
+        d_fvec[b, p]    = sum over (n, k) with idx[b, n, k] == p of g[b, n, k] * targets[b, n]
+
+    computed in fp32 (float64 if an input is float64) from `fvec` and
+    `targets` as given; an index outside [0, P) adds nothing. Returns
+    (d_fvec in fvec.dtype, d_targets in targets.dtype).
+    """
+    b, p, c = fvec.shape
+    acc = torch.promote_types(torch.float32, torch.promote_types(fvec.dtype, targets.dtype))
+    valid = (idx >= 0) & (idx < p)
+    safe = torch.where(valid, idx, torch.zeros_like(idx))
+    gz = torch.where(valid, g.to(acc), torch.zeros((), dtype=acc, device=g.device))
+    rows = gather_neighbors(fvec, safe).to(acc)  # [B, N, K, C]
+    d_targets = torch.einsum("bnk,bnkc->bnc", gz, rows).to(targets.dtype)
+    updates = gz[..., None] * targets.to(acc)[:, :, None, :]  # [B, N, K, C]
+    flat = (safe.long() + torch.arange(b, device=idx.device).view(b, 1, 1) * p).reshape(-1)
+    d_fvec = torch.zeros((b * p, c), dtype=acc, device=fvec.device).index_add_(0, flat, updates.reshape(-1, c))
+    return d_fvec.reshape(b, p, c).to(fvec.dtype), d_targets
+
+
+def corr_select_backward_cuda(fvec: torch.Tensor, targets: torch.Tensor, idx: torch.Tensor, g: torch.Tensor):
+    """The CUDA kernel `csrc/corr_bwd.cu`; same contract as
+    `corr_select_backward_plain`, for a float32 or bfloat16 fvec and float32
+    targets (the tracker's track features are fp32 in both models). Adds one to `corr_select_backward_cuda.launches` per kernel
+    launch.
+
+    `d_fvec` is summed with atomics into a zeroed fp32 buffer and then cast,
+    so the order of its fp32 sums, and with it the last bits, vary from run
+    to run; `d_targets` is summed in a fixed order.
+    """
+    if not (fvec.is_cuda and all(t.device == fvec.device for t in (targets, idx, g))):
+        raise ValueError("corr_select_backward_cuda needs fvec, targets, idx and g on one CUDA device")
+    if fvec.dtype not in _DTYPE_CODES or targets.dtype != torch.float32:
+        raise TypeError(
+            f"corr_select_backward_cuda takes a float32 or bfloat16 fvec and float32 targets, "
+            f"got {fvec.dtype}, {targets.dtype}"
+        )
+    if idx.dtype != torch.int64 or g.dtype != torch.float32:
+        raise TypeError(f"corr_select_backward_cuda takes int64 idx and float32 g, got {idx.dtype}, {g.dtype}")
+    if fvec.dim() != 3 or targets.dim() != 3 or idx.dim() != 3:
+        raise ValueError("corr_select_backward_cuda takes [B, P, C], [B, N, C], [B, N, K], [B, N, K]")
+    b, p, c = fvec.shape
+    _, n, k = idx.shape
+    if targets.shape != (b, n, c) or idx.shape[0] != b or g.shape != idx.shape:
+        raise ValueError(
+            f"corr_select_backward_cuda: shapes {tuple(fvec.shape)}, {tuple(targets.shape)}, "
+            f"{tuple(idx.shape)}, {tuple(g.shape)} disagree"
+        )
+    vec = 16 // fvec.element_size()
+    if c % vec:
+        raise ValueError(f"corr_select_backward_cuda needs C a multiple of {vec} for {fvec.dtype} fvec, got {c}")
+    if not all(t.is_contiguous() for t in (fvec, targets, idx, g)):
+        raise ValueError("corr_select_backward_cuda takes contiguous tensors")
+    if fvec.data_ptr() % 16 or targets.data_ptr() % 16:
+        raise ValueError("corr_select_backward_cuda needs 16-byte aligned fvec and targets")
+    if max(b * n * k, b * n) >= 2**31:
+        raise ValueError("corr_select_backward_cuda: tensor too large for the kernel's indexing")
+    d_targets = torch.empty_like(targets)
+    acc = torch.zeros((b, p, c), dtype=torch.float32, device=fvec.device)
+    if idx.numel() == 0:
+        return acc.to(fvec.dtype), d_targets.zero_()
+    lib = _cuda.load("corr_bwd")
+    with torch.cuda.device(fvec.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.corr_backward(
+            fvec.data_ptr(), targets.data_ptr(), idx.data_ptr(), g.data_ptr(), d_targets.data_ptr(), acc.data_ptr(),
+            b, n, p, k, c, _DTYPE_CODES[fvec.dtype], stream,
+        )
+    _cuda.check(lib, status, "corr_select_backward_cuda")
+    corr_select_backward_cuda.launches += 1
+    return acc.to(fvec.dtype), d_targets
+
+
+corr_select_backward_cuda.launches = 0
+
+
 def corr_select(fvec: torch.Tensor, targets: torch.Tensor, idx: torch.Tensor):
     """Correlations <targets[b, n], fvec[b, idx[b, n, k]]> -> [B, N, K] fp32,
     unscaled: the CUDA kernel for CUDA tensors, the plain version for CPU."""
@@ -108,6 +203,43 @@ def corr_select(fvec: torch.Tensor, targets: torch.Tensor, idx: torch.Tensor):
     if fvec.device.type == "cpu":
         return corr_select_plain(fvec, targets, idx)
     raise ValueError(f"corr_select: unsupported device {fvec.device}")
+
+
+def corr_select_backward(fvec: torch.Tensor, targets: torch.Tensor, idx: torch.Tensor, g: torch.Tensor):
+    """Gradients of `corr_select` -> (d_fvec, d_targets): the CUDA kernel for
+    CUDA tensors, the plain version for CPU."""
+    if fvec.is_cuda:
+        return corr_select_backward_cuda(fvec, targets, idx, g)
+    if fvec.device.type == "cpu":
+        return corr_select_backward_plain(fvec, targets, idx, g)
+    raise ValueError(f"corr_select_backward: unsupported device {fvec.device}")
+
+
+class CorrSelect(torch.autograd.Function):
+    """`corr_select` with its hand-written backward, the counterpart of the
+    JAX package's `custom_vjp` on `corr_select_pallas`.
+
+    Takes the uncast `cloud_fvec` [B, P, C], `targets` [B, N, C], int64
+    `idx` [B, N, K] and the compute dtype (None = float32). The forward
+    casts both to the compute dtype and correlates; the uncast tensors are
+    what is saved. The backward works on them in fp32 and returns `d_fvec`
+    in `cloud_fvec.dtype` and `d_targets` in `targets.dtype`, so a cast to
+    bf16 rounds the forward's operands only, never the gradients' factors.
+    """
+
+    @staticmethod
+    def forward(ctx, cloud_fvec, targets, idx, compute_dtype=None):
+        dt = torch.float32 if compute_dtype is None else compute_dtype
+        cloud_fvec, targets, idx = cloud_fvec.contiguous(), targets.contiguous(), idx.contiguous()
+        ctx.save_for_backward(cloud_fvec, targets, idx)
+        return corr_select(cloud_fvec.to(dt), targets.to(dt), idx)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        cloud_fvec, targets, idx = ctx.saved_tensors
+        d_fvec, d_targets = corr_select_backward(cloud_fvec, targets, idx, g.float().contiguous())
+        return d_fvec, d_targets, None, None
 
 
 def corr_sample(
@@ -124,16 +256,13 @@ def corr_sample(
     """Correlation features per track point -> [B, M, K, F], laid out per
     neighbour as [corr (G) | offset (3)? | xyz (3)?].
 
-    With one group the features go through `corr_select` in `compute_dtype`
-    (fp32 when None), then the 1/sqrt(C) scale; with more groups through
-    the gather and `grouped_correlation`.
+    With one group the features go through `CorrSelect`, which casts them to
+    `compute_dtype` (fp32 when None) itself, then the 1/sqrt(C) scale; with
+    more groups through the gather and `grouped_correlation`.
     """
     if groups == 1:
-        dt = torch.float32 if compute_dtype is None else compute_dtype
         c = cloud_fvec.shape[-1]
-        corr = corr_select(
-            cloud_fvec.to(dt).contiguous(), targets.to(dt).contiguous(), neighbor_idx.long().contiguous()
-        )
+        corr = CorrSelect.apply(cloud_fvec, targets, neighbor_idx.long(), compute_dtype)
         out = (corr[..., None] / math.sqrt(c)).to(targets.dtype)
     else:
         out = grouped_correlation(targets, gather_neighbors(cloud_fvec, neighbor_idx), groups)

@@ -92,3 +92,75 @@ def init_pointcloud_from_rgbd(
     xyz = world.permute(0, 2, 1, 3, 4, 5).reshape(b * s, v * h * w, 3)
     fvec = fmaps.permute(0, 2, 1, 3, 4, 5).reshape(b * s, v * h * w, c)
     return xyz, fvec
+
+
+def world_to_pixel_xy_and_camera_z(world_xyz: torch.Tensor, intrs: torch.Tensor, extrs: torch.Tensor):
+    """Project world points [*B, N, 3] into cameras with intrs [*B, 3, 3]
+    and extrs [*B, 3, 4] -> (pixel_xy [*B, N, 2], camera_z [*B, N, 1])."""
+    camera_xyz = torch.einsum("...ij,...nj->...ni", extrs, to_homogeneous(world_xyz))
+    camera_z = camera_xyz[..., -1:]
+    pixel_h = torch.einsum("...ij,...nj->...ni", intrs, camera_xyz)
+    return pixel_h[..., :2] / pixel_h[..., -1:], camera_z
+
+
+def pixel_xy_and_camera_z_to_world(
+    pixel_xy: torch.Tensor,  # [*B, N, 2]
+    camera_z: torch.Tensor,  # [*B, N, 1]
+    intrs_inv: torch.Tensor,  # [*B, 3, 3]
+    extrs_inv: torch.Tensor,  # [*B, 4, 4]
+) -> torch.Tensor:
+    """Lift pixel coordinates and camera-space depth back to world xyz [*B, N, 3]."""
+    camera_xyz = torch.einsum("...ij,...nj->...ni", intrs_inv, to_homogeneous(pixel_xy)) * camera_z
+    world_h = torch.einsum("...ij,...nj->...ni", extrs_inv, to_homogeneous(camera_xyz))
+    return world_h[..., :3]
+
+
+def reprojection_roundtrip_dev(world_xyz: torch.Tensor, intrs: torch.Tensor, extrs: torch.Tensor) -> torch.Tensor:
+    """Largest |world -> (pixel xy, camera z) -> world| deviation over all
+    views, a scalar: the runtime guard on the projection algebra.
+
+    world_xyz [*B, N, 3]; intrs [V, *B, 3, 3] and extrs [V, *B, 3, 4] carry a
+    leading view axis. Points with |camera z| <= 1e-3 are left out (the
+    round trip divides and multiplies by z); 0 when every point is.
+    """
+    pix, z = world_to_pixel_xy_and_camera_z(world_xyz[None], intrs, extrs)
+    back = pixel_xy_and_camera_z_to_world(pix, z, invert_intrinsics(intrs), invert_extrinsics(extrs))
+    dev = (back - world_xyz[None]).abs().amax(dim=-1)
+    ok = z[..., 0].abs() > 1e-3
+    return torch.where(ok, dev, torch.zeros_like(dev)).max()
+
+
+def bilinear_sample2d(im: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Bilinearly sample channels-last maps im [B, H, W, C] at continuous
+    pixel locations x, y [B, N] -> [B, N, C]. The four corner indices are
+    clamped into the map; the weights are not."""
+    b, h, w, c = im.shape
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = (x - x0)[..., None], (y - y0)[..., None]
+    # float -> int32 saturates in the JAX package; clamp before the cast so a
+    # far-out coordinate cannot wrap.
+    x0i = x0.clamp(0, w - 1).long()
+    x1i = (x0 + 1).clamp(0, w - 1).long()
+    y0i = y0.clamp(0, h - 1).long()
+    y1i = (y0 + 1).clamp(0, h - 1).long()
+    flat = im.reshape(b, h * w, c)
+
+    def gather(yy, xx):
+        return torch.gather(flat, 1, (yy * w + xx)[..., None].expand(-1, -1, c))
+
+    return (
+        gather(y0i, x0i) * (1 - wx) * (1 - wy)
+        + gather(y0i, x1i) * wx * (1 - wy)
+        + gather(y1i, x0i) * (1 - wx) * wy
+        + gather(y1i, x1i) * wx * wy
+    )
+
+
+def reduce_masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None, keepdim: bool = False, eps: float = 1e-6):
+    """Mean of `x` over the entries where `mask` is nonzero:
+    sum(x * mask) / (sum(mask) + eps)."""
+    mask = mask.to(x.dtype)
+    prod = x * mask
+    if dim is None:
+        return prod.sum() / (mask.sum() + eps)
+    return prod.sum(dim=dim, keepdim=keepdim) / (mask.sum(dim=dim, keepdim=keepdim) + eps)

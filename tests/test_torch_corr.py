@@ -1,7 +1,9 @@
 """Port parity: the plain correlation of `mvtracker_torch.ops.corr` against
 the JAX package's TPU kernel (`corr_select_pallas`, interpret mode) and its
-gather path (`corr_sample(backend="gather")`), on the same numpy inputs."""
+gather path (`corr_sample(backend="gather")`), on the same numpy inputs; and
+the gradients of `CorrSelect` against the kernel's `custom_vjp`."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -92,3 +94,117 @@ def test_corr_sample_bf16_stream_matches_pallas_path(rng):
     # Streaming the targets in fp32 instead is a visible change.
     fp32_stream = t_corr.corr_sample(*args)
     assert float((fp32_stream - got).abs().max()) > 1e-4
+
+
+# Gradients. Measured gaps (seeds 0..2): d_targets 9.5e-7 to 1.4e-6 on values
+# up to 15 (fp32 sums of k products in another order); d_fvec 0, in fp32 and
+# with a bf16 cloud (both scatter-add in the same order here). The bf16
+# d_fvec is an fp32 sum rounded once to bf16, so another summation order may
+# move an entry by one bf16 step, 6.25e-2 at magnitudes 8..16: that is the
+# bf16 tolerance.
+GRAD_FP32_ATOL = 1e-5
+GRAD_BF16_ATOL = 6.3e-2
+
+
+def _grads_both(fvec, targets, idx, g, dtype):
+    """(d_fvec, d_targets) from the JAX custom_vjp and from CorrSelect, for
+    an fp32 call or the tracker's bf16 call (bf16 cloud, fp32 targets)."""
+    bf16 = dtype == "bfloat16"
+    jf = jnp.asarray(fvec, jnp.bfloat16 if bf16 else jnp.float32)
+    jdt = jnp.bfloat16 if bf16 else None
+    _, vjp = jax.vjp(
+        lambda f, t: corr_select_pallas(f, t, jnp.asarray(idx, jnp.int32), None, 256, True, jdt),
+        jf, jnp.asarray(targets),
+    )
+    want = vjp(jnp.asarray(g))
+    tf = torch.from_numpy(fvec).to(torch.bfloat16 if bf16 else torch.float32).requires_grad_()
+    tt = torch.from_numpy(targets).requires_grad_()
+    out = t_corr.CorrSelect.apply(tf, tt, torch.from_numpy(idx), torch.bfloat16 if bf16 else None)
+    (out * torch.from_numpy(g)).sum().backward()
+    return want, (tf.grad, tt.grad)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_corr_select_gradients_match_pallas_vjp(rng, dtype):
+    b, p, c, n, k = 2, 300, 32, 40, 8
+    fvec, targets, idx = _inputs(rng, b, p, c, n, k)
+    g = rng.normal(size=(b, n, k)).astype(np.float32)
+    (want_f, want_t), (got_f, got_t) = _grads_both(fvec, targets, idx, g, dtype)
+    # Each gradient has its own tensor's dtype: the cast sits inside.
+    assert got_t.dtype == torch.float32 and want_t.dtype == jnp.float32
+    assert got_f.dtype == (torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+    assert want_f.dtype == (jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), atol=GRAD_FP32_ATOL)
+    atol = GRAD_BF16_ATOL if dtype == "bfloat16" else GRAD_FP32_ATOL
+    np.testing.assert_allclose(got_f.float().numpy(), np.asarray(want_f, np.float32), atol=atol)
+    if dtype == "bfloat16":
+        # The backward multiplies g by the unrounded fp32 targets: an autograd
+        # graph through targets.to(bf16) would give another d_fvec.
+        rounded = torch.from_numpy(targets).bfloat16().float()
+        alt, _ = t_corr.corr_select_backward_plain(
+            torch.from_numpy(fvec).float(), rounded, torch.from_numpy(idx), torch.from_numpy(g)
+        )
+        exact, _ = t_corr.corr_select_backward_plain(
+            torch.from_numpy(fvec).float(), torch.from_numpy(targets), torch.from_numpy(idx), torch.from_numpy(g)
+        )
+        assert float((alt - exact).abs().max()) > 1e-3
+        np.testing.assert_allclose(got_f.float().numpy(), exact.numpy(), atol=GRAD_BF16_ATOL)
+
+
+def test_corr_select_gradients_drop_out_of_range_indices(rng):
+    b, p, c, n, k = 2, 50, 16, 10, 6
+    fvec, targets, idx = _inputs(rng, b, p, c, n, k)
+    idx[:, :, 0] = -1
+    idx[:, :, 1] = p
+    g = rng.normal(size=(b, n, k)).astype(np.float32)
+    # The forward gives 0 at such an index, so its true gradient is none. The
+    # JAX backward is asked with those neighbours taken out (index 0, g 0):
+    # on the indices themselves its gather and scatter wrap -1 to the last
+    # row, which the forward never read.
+    idx_in, g_in = idx.copy(), g.copy()
+    idx_in[:, :, :2] = 0
+    g_in[:, :, :2] = 0
+    (want_f, want_t), _ = _grads_both(fvec, targets, idx_in, g_in, "float32")
+    _, (got_f, got_t) = _grads_both(fvec, targets, idx, g, "float32")
+    np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f), atol=GRAD_FP32_ATOL)
+    np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), atol=GRAD_FP32_ATOL)
+    # Zeroing g at the dropped neighbours changes nothing.
+    g0 = g.copy()
+    g0[:, :, :2] = 0
+    d_f, d_t = t_corr.corr_select_backward_plain(*map(torch.from_numpy, (fvec, targets, idx, g0)))
+    np.testing.assert_array_equal(d_f.numpy(), got_f.numpy())
+    np.testing.assert_array_equal(d_t.numpy(), got_t.numpy())
+    # Rows no valid index names get exactly zero.
+    hit = np.zeros((b, p), bool)
+    for bi in range(b):
+        hit[bi, idx[bi][(idx[bi] >= 0) & (idx[bi] < p)]] = True
+    assert not got_f.numpy()[~hit].any()
+
+
+def test_corr_select_backward_plain_finite_difference(rng):
+    """Directional derivative of the plain forward in float64 against the
+    plain backward: <g, corr(x + h d) - corr(x - h d)> / 2h = <grad, d>."""
+    b, p, c, n, k = 2, 30, 8, 6, 5
+    fvec, targets, idx = _inputs(rng, b, p, c, n, k)
+    idx[0, 0, 0] = -1
+    fvec, targets = torch.from_numpy(fvec).double(), torch.from_numpy(targets).double()
+    idx = torch.from_numpy(idx)
+    g = torch.from_numpy(rng.normal(size=(b, n, k)))
+    d_f = torch.from_numpy(rng.normal(size=fvec.shape))
+    d_t = torch.from_numpy(rng.normal(size=targets.shape))
+    h = 1e-6
+    plus = t_corr.corr_select_plain(fvec + h * d_f, targets + h * d_t, idx)
+    minus = t_corr.corr_select_plain(fvec - h * d_f, targets - h * d_t, idx)
+    assert plus.dtype == torch.float64
+    numeric = float((g * (plus - minus)).sum() / (2 * h))
+    grad_f, grad_t = t_corr.corr_select_backward_plain(fvec, targets, idx, g)
+    assert grad_f.dtype == grad_t.dtype == torch.float64
+    analytic = float((grad_f * d_f).sum() + (grad_t * d_t).sum())
+    assert abs(numeric - analytic) <= 1e-7 * max(1.0, abs(analytic))
+
+
+def test_cuda_backward_wrapper_rejects_cpu_tensors():
+    x = torch.zeros(1, 4, 8)
+    i = torch.zeros(1, 4, 2, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_corr.corr_select_backward_cuda(x, x, i, torch.zeros(1, 4, 2))

@@ -18,6 +18,10 @@ pytestmark = pytest.mark.cuda
 
 KNN_RTOL, KNN_ATOL = 1e-5, 1e-6  # both compute d^2 directly in fp32
 CORR_ATOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}  # fp32 sums, other order
+# Backward: fp32 sums of up to a few dozen products of N(0,1) values in
+# another order (d_fvec by atomics, in an order that varies); a bf16 result
+# is also rounded to bf16 once on each side, at magnitudes up to ~16.
+BWD_ATOL = {torch.float32: 1e-4, torch.bfloat16: 7e-2}
 
 
 @pytest.fixture
@@ -45,14 +49,67 @@ def test_knn_kernel_matches_plain(gen, b, n, m, k):
         assert bool((i[..., n:] == 0).all()) and bool((d[..., n:] > 1e8).all())
 
 
-def test_knn_kernel_rejects_what_it_cannot_take(gen):
+@pytest.mark.parametrize("b,n,m,k", [
+    (2, 300000, 64, 16), (1, 281600, 256, 1), (3, 5000, 37, 16), (2, 2049, 9, 20), (2, 700, 17, 32), (2, 6, 11, 8),
+])
+def test_knn_tiled_kernel_matches_plain(gen, b, n, m, k):
+    """The split-cloud kernel: several spans, one span, fewer points than k."""
+    ref = torch.randn(b, n, 3, generator=gen, device="cuda")
+    query = torch.randn(b, m, 3, generator=gen, device="cuda")
+    before = t_knn.knn_tiled_cuda.launches
+    d, i = t_knn.knn(ref, query, k, backend="tiled")
+    assert t_knn.knn_tiled_cuda.launches == before + 1
+    dp, ip = t_knn.knn_plain(ref, query, k)
+    torch.testing.assert_close(d, dp, rtol=KNN_RTOL, atol=KNN_ATOL)
+    real = min(k, n)
+    pts = torch.gather(ref, 1, i[..., :real].reshape(b, -1, 1).expand(-1, -1, 3)).reshape(b, m, real, 3)
+    torch.testing.assert_close((pts - query[:, :, None]).norm(dim=-1).clamp_min(1e-6), d[..., :real].clamp_min(1e-6),
+                               rtol=KNN_RTOL, atol=KNN_ATOL)
+    if k > n:
+        assert bool((i[..., n:] == 0).all()) and bool((d[..., n:] > 1e8).all())
+    # The fused kernel evaluates the same expression: same distances, bit for bit.
+    assert torch.equal(d, t_knn.knn_cuda(ref, query, k)[0])
+
+
+def test_knn_auto_takes_the_tiled_kernel_above_the_switch(gen):
+    ref = torch.randn(1, t_knn.FUSED_MAX_POINTS + 1, 3, generator=gen, device="cuda")
+    query = torch.randn(1, 5, 3, generator=gen, device="cuda")
+    fused, tiled = t_knn.knn_cuda.launches, t_knn.knn_tiled_cuda.launches
+    t_knn.knn(ref, query, 4)
+    t_knn.knn(ref[:, :-1].contiguous(), query, 4)
+    assert (t_knn.knn_cuda.launches, t_knn.knn_tiled_cuda.launches) == (fused + 1, tiled + 1)
+
+
+@pytest.mark.parametrize("b,n,m,k", [(1, 20000, 300, 16), (2, 4099, 33, 1), (2, 700, 17, 32), (2, 6, 11, 8)])
+def test_knn_exact_kernel_equals_the_stable_sort(gen, b, n, m, k):
+    """Indices equal the plain exact version's one for one, on a cloud where
+    a third of the points are copies of others and some queries sit on one."""
+    ref = torch.randn(b, n, 3, generator=gen, device="cuda")
+    copies = torch.randint(0, n, (n // 3,), generator=gen, device="cuda")
+    ref[:, torch.randperm(n, generator=gen, device="cuda")[: n // 3]] = ref[:, copies]
+    query = torch.randn(b, m, 3, generator=gen, device="cuda")
+    on_a_point = min(m // 2, len(copies))
+    query[:, :on_a_point] = ref[:, copies[:on_a_point]]
+    before = t_knn.knn_exact_cuda.launches
+    d, i = t_knn.knn(ref, query, k, backend="exact")
+    assert t_knn.knn_exact_cuda.launches == before + 1
+    dp, ip = t_knn.knn_exact_plain(ref, query, k)
+    assert torch.equal(i, ip)
+    torch.testing.assert_close(d, dp, rtol=1e-6, atol=0)
+    if k > 1 and n > k:
+        assert bool((d[..., 1:] == d[..., :-1]).any())  # ties were there to break
+
+
+@pytest.mark.parametrize("wrapper", ["knn_cuda", "knn_tiled_cuda", "knn_exact_cuda"])
+def test_knn_kernel_rejects_what_it_cannot_take(gen, wrapper):
+    fn = getattr(t_knn, wrapper)
     x = torch.randn(1, 50, 3, generator=gen, device="cuda")
     with pytest.raises(ValueError):
-        t_knn.knn_cuda(x, x, 33)
+        fn(x, x, 33)
     with pytest.raises(TypeError):
-        t_knn.knn_cuda(x.double(), x.double(), 4)
+        fn(x.double(), x.double(), 4)
     with pytest.raises(ValueError):
-        t_knn.knn_cuda(x[:, ::2], x, 4)
+        fn(x[:, ::2], x, 4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -79,3 +136,71 @@ def test_corr_kernel_rejects_what_it_cannot_take(gen):
         t_corr.corr_select_cuda(fvec, fvec[:, :4].contiguous(), idx)
     with pytest.raises(TypeError):
         t_corr.corr_select_cuda(fvec.half(), fvec[:, :4].half().contiguous(), idx)
+
+
+@pytest.mark.parametrize("fvec_dtype,targets_dtype", [
+    (torch.bfloat16, torch.float32),  # the bf16 tracker: bf16 cloud, fp32 track features
+    (torch.float32, torch.float32),  # the fp32 tracker
+])
+@pytest.mark.parametrize("b,p,n,k,c", [
+    (12, 16384, 256, 16, 128), (12, 4096, 256, 16, 128), (12, 1024, 256, 16, 128), (12, 256, 256, 16, 128),
+    (2, 900, 33, 16, 32), (2, 50, 7, 5, 8), (1, 300, 9, 20, 256),
+])
+def test_corr_backward_kernel_matches_plain(gen, fvec_dtype, targets_dtype, b, p, n, k, c):
+    fvec = torch.randn(b, p, c, generator=gen, device="cuda").to(fvec_dtype)
+    targets = torch.randn(b, n, c, generator=gen, device="cuda").to(targets_dtype)
+    idx = torch.randint(0, p, (b, n, k), generator=gen, device="cuda")
+    idx[:, :, 1] = -1  # padding
+    idx[:, :, 2] = p  # out of range
+    idx[:, :, 3] = idx[:, :, 4]  # a row hit twice by one query
+    g = torch.randn(b, n, k, generator=gen, device="cuda")
+    before = t_corr.corr_select_backward_cuda.launches
+    d_fvec, d_targets = t_corr.corr_select_backward(fvec, targets, idx, g)
+    torch.cuda.synchronize()
+    assert t_corr.corr_select_backward_cuda.launches == before + 1
+    want_fvec, want_targets = t_corr.corr_select_backward_plain(fvec, targets, idx, g)
+    assert d_fvec.dtype == fvec_dtype and d_targets.dtype == targets_dtype
+    assert d_fvec.shape == fvec.shape and d_targets.shape == targets.shape
+    torch.testing.assert_close(d_fvec.float(), want_fvec.float(), rtol=0, atol=BWD_ATOL[fvec_dtype])
+    torch.testing.assert_close(d_targets.float(), want_targets.float(), rtol=0, atol=BWD_ATOL[targets_dtype])
+    # The padding and out-of-range neighbours gave nothing: the same call
+    # with their g zeroed has the same d_targets, bit for bit.
+    g2 = g.clone()
+    g2[:, :, 1:3] = 0
+    torch.testing.assert_close(t_corr.corr_select_backward(fvec, targets, idx, g2)[1], d_targets, rtol=0, atol=0)
+
+
+def test_corr_select_autograd_on_the_card(gen):
+    """`CorrSelect` end to end on CUDA tensors: kernel forward, kernel
+    backward, gradients in the inputs' own dtypes."""
+    b, p, n, k, c = 3, 500, 40, 16, 128
+    fvec = torch.randn(b, p, c, generator=gen, device="cuda").bfloat16().requires_grad_()
+    targets = torch.randn(b, n, c, generator=gen, device="cuda").requires_grad_()
+    idx = torch.randint(0, p, (b, n, k), generator=gen, device="cuda")
+    w = torch.randn(b, n, k, generator=gen, device="cuda")
+    f0, b0 = t_corr.corr_select_cuda.launches, t_corr.corr_select_backward_cuda.launches
+    (t_corr.CorrSelect.apply(fvec, targets, idx, torch.bfloat16) * w).sum().backward()
+    assert (t_corr.corr_select_cuda.launches, t_corr.corr_select_backward_cuda.launches) == (f0 + 1, b0 + 1)
+    assert fvec.grad.dtype == torch.bfloat16 and targets.grad.dtype == torch.float32
+    want_fvec, want_targets = t_corr.corr_select_backward_plain(fvec.detach(), targets.detach(), idx, w)
+    torch.testing.assert_close(targets.grad, want_targets, rtol=0, atol=BWD_ATOL[torch.float32])
+    torch.testing.assert_close(fvec.grad.float(), want_fvec.float(), rtol=0, atol=BWD_ATOL[torch.bfloat16])
+
+
+def test_corr_backward_kernel_rejects_what_it_cannot_take(gen):
+    fvec = torch.randn(1, 10, 8, generator=gen, device="cuda")
+    targets = torch.randn(1, 4, 8, generator=gen, device="cuda")
+    idx = torch.zeros(1, 4, 2, dtype=torch.int64, device="cuda")
+    g = torch.zeros(1, 4, 2, device="cuda")
+    with pytest.raises(TypeError):
+        t_corr.corr_select_backward_cuda(fvec.half(), targets, idx, g)
+    with pytest.raises(TypeError):  # the track features are fp32 in both models
+        t_corr.corr_select_backward_cuda(fvec, targets.bfloat16(), idx, g)
+    with pytest.raises(TypeError):
+        t_corr.corr_select_backward_cuda(fvec, targets, idx, g.double())
+    with pytest.raises(ValueError):
+        t_corr.corr_select_backward_cuda(fvec, targets, idx, g[:, :, :1])
+    with pytest.raises(ValueError):  # C=6 is not a multiple of 4 floats
+        t_corr.corr_select_backward_cuda(fvec[..., :6].contiguous(), targets[..., :6].contiguous(), idx, g)
+    with pytest.raises(ValueError):
+        t_corr.corr_select_backward_cuda(fvec.cpu(), targets, idx, g)

@@ -1,6 +1,7 @@
 """Port parity: the whole `MVTracker` forward of `mvtracker_torch` against the
 JAX package's on the same scene and weights (CPU, fp32 and bf16), the weight
-converters in both directions, and the options the port refuses."""
+converters in both directions, the options the port refuses, and the
+training outputs (`is_train`, `remat`, `remat_encoder`)."""
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +41,17 @@ VIS_ATOL = 1e-4
 # 0.10 / 3.6e-2 and fails too.
 BF16_TRAJ_ATOL = (2e-2, 1e-3)
 BF16_VIS_ATOL = (6e-2, 1e-2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def single_intra_op_thread():
+    """One intra-op thread while this file runs. The suite runs in several
+    worker processes; a PyTorch thread pool per process oversubscribes the
+    cores, and the backward then runs many times slower than alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _setup(compute_dtype):
@@ -110,9 +122,33 @@ def test_unported_options_raise(name):
 
 def test_unknown_option_and_dtype_raise():
     with pytest.raises(TypeError):
-        t_mvt.MVTracker(knn_backend="pallas", device="cpu")
+        t_mvt.MVTracker(corr_backend="pallas", device="cpu")
     with pytest.raises(ValueError):
         t_mvt.MVTracker(compute_dtype="float16", device="cpu")
+
+
+@pytest.mark.parametrize("backend", ["fused", "tiled", "exact"])
+def test_knn_backend_reaches_every_knn_call(backend, monkeypatch):
+    """`knn_backend` is handed to every kNN call of the forward (the query
+    features' and each level's), and on a cloud without ties the tracks do
+    not depend on it."""
+    scene, model, _ = _setup("float32")
+    want = model(*scene, iters=1)
+    chosen = t_mvt.MVTracker(**CFG, knn_backend=backend, device="cpu").eval()
+    chosen.load_state_dict(model.state_dict())
+    seen = []
+    real = t_mvt.knn_ops.knn
+
+    def spy(ref, query, k, backend="auto"):
+        seen.append(backend)
+        return real(ref, query, k, backend=backend)
+
+    monkeypatch.setattr(t_mvt.knn_ops, "knn", spy)
+    got = chosen(*scene, iters=1)
+    assert seen == [backend] * (1 + 2 * 2)  # feat_init, then 2 windows x (level 0, levels 1-3)
+    assert torch.equal(got["traj"], want["traj"]) and torch.equal(got["vis"], want["vis"])
+    with pytest.raises(ValueError, match="knn_backend"):
+        t_mvt.MVTracker(**CFG, knn_backend="pallas", device="cpu")
 
 
 def test_default_device_raises_without_cuda():
@@ -140,3 +176,74 @@ def test_bf16_forward_runs_on_cpu():
     # median 8.2e-2, so dropped updates fail the traj check.
     np.testing.assert_allclose(o16["traj"].numpy(), o32["traj"].numpy(), atol=2e-3)
     np.testing.assert_allclose(o16["vis"].numpy(), o32["vis"].numpy(), atol=5e-3)
+
+
+def test_serving_forward_records_no_graph():
+    scene, model, _ = _setup("float32")
+    assert all(p.requires_grad for p in model.parameters())
+    out = model(*scene, iters=1)
+    assert "train_data" not in out
+    assert not out["traj"].requires_grad and not out["vis"].requires_grad and out["traj"].grad_fn is None
+
+
+def test_is_train_returns_train_data_like_jax():
+    """`train_data` of the port against the JAX module's: the port stacks the
+    executed windows (all of them here, the anchor is frame 0)."""
+    scene, model, params = _setup("float32")
+    want = JaxMVTracker(**CFG).apply(params, *scene, iters=2, is_train=True)["train_data"]
+    out = model(*scene, iters=2, is_train=True)
+    got = out["train_data"]
+    assert out["traj"].requires_grad
+    assert got["coord_predictions"].shape == (2, 2, 6, 6, 3) and got["vis_predictions"].shape == (2, 6, 6)
+    assert bool(np.asarray(want["window_valid"]).all()) and bool(got["window_valid"].all())
+    np.testing.assert_array_equal(got["window_starts"].numpy(), np.asarray(want["window_starts"]))
+    np.testing.assert_array_equal(got["window_active"].numpy(), np.asarray(want["window_active"]))
+    np.testing.assert_allclose(
+        got["coord_predictions"].detach().numpy(), np.asarray(want["coord_predictions"]), atol=TRAJ_ATOL
+    )
+    # Visibility logits reach +-10 (the init), so they get a relative part too.
+    np.testing.assert_allclose(
+        got["vis_predictions"].detach().numpy(), np.asarray(want["vis_predictions"]), atol=VIS_ATOL, rtol=1e-5
+    )
+    # The serving outputs are the same with and without the graph.
+    np.testing.assert_array_equal(out["traj"].detach().numpy(), model(*scene, iters=2)["traj"].numpy())
+
+
+@pytest.mark.parametrize("remat_encoder", [True, False])
+def test_remat_and_remat_encoder_work(remat_encoder):
+    """Rematerialisation changes neither the outputs nor the gradients, and
+    the checkpointed modules are the ones the flags name."""
+    from unittest import mock
+
+    import mvtracker_torch.models.mvtracker as mod
+
+    scene, model, _ = _setup("float32")
+    remat = t_mvt.MVTracker(**CFG, remat=True, remat_encoder=remat_encoder, device="cpu")
+    remat.load_state_dict(model.state_dict())
+    seen = []
+    real = mod.checkpoint
+
+    def spy(fn, *args, **kwargs):
+        seen.append(fn)
+        assert kwargs.get("use_reentrant") is False
+        return real(fn, *args, **kwargs)
+
+    grads = {}
+    for name, m in (("plain", model), ("remat", remat)):
+        m.zero_grad(set_to_none=True)
+        with mock.patch.object(mod, "checkpoint", spy):
+            out = m(*scene, iters=2, is_train=True)
+        td = out["train_data"]
+        (td["coord_predictions"].square().mean() + td["vis_predictions"].square().mean()).backward()
+        grads[name] = (out["traj"].detach(), {k: p.grad for k, p in m.named_parameters()})
+    # 2 windows x 2 iterations of the transformer, plus the encoder once.
+    assert seen.count(remat.updateformer) == 4 and seen.count(remat.fnet) == int(remat_encoder)
+    assert len(seen) == 4 + int(remat_encoder)
+    assert torch.equal(grads["plain"][0], grads["remat"][0])
+    for k, g in grads["plain"][1].items():
+        assert g is not None and torch.equal(g, grads["remat"][1][k]), k
+    # Serving never rematerialises: nothing is kept to recompute.
+    seen.clear()
+    with mock.patch.object(mod, "checkpoint", spy):
+        remat(*scene, iters=1)
+    assert not seen
