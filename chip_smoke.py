@@ -13,8 +13,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    k > N and a far-from-origin kNN case; per
    shape the kernel's device time (launches replayed from a CUDA graph), its
    time called from Python through the wrapper, the plain version's device
-   time and the bound; for the correlation backward, whose scatter uses
-   atomics, also the difference between two runs on one input;
+   time and the bound; for the correlation kernels, which sum in a fixed
+   order, also that two runs on one input give the same bits;
 3. the serving path: the flagship MVTracker in bf16 with seeded random
    weights answers 3 requests (scenes of seeds 0, 1, 2), with launch
    counters showing every kNN and correlation went through the kernels;
@@ -95,8 +95,8 @@ LARGE_SAME_ATOL = 1e-3
 KNN_RTOL = 1e-5  # both compute d^2 directly in fp32; only rounding differs
 KNN_ATOL = 1e-6
 CORR_TOL = {"float32": 1e-4, "bfloat16": 1e-3}  # fp32 sums of 128 products, other order
-# Correlation backward: fp32 sums of N(0,1) products in another order (d_fvec
-# by atomics), values up to a few tens. With a bf16 cloud, d_fvec is rounded
+# Correlation backward: fp32 sums of N(0,1) products in another order than the
+# plain version's, values up to a few tens. With a bf16 cloud, d_fvec is rounded
 # once to bf16 on each side: nearly equal fp32 sums may round to neighbouring
 # bf16 values, one step of at most 2^-7 of the value.
 CORR_BWD_ATOL = 1e-4
@@ -357,7 +357,9 @@ def phase_kernels(torch, knn_ops, corr_ops, gen):
         level_idx.append(idx)
         for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
             fvec = torch.randn(s, p, c, generator=gen, device=dev).to(dt)
-            targets = torch.randn(s, N_QUERIES, c, generator=gen, device=dev).to(dt)
+            # The path's track features are fp32 in both models; with a bf16
+            # cloud the kernel rounds them to bf16 as they load.
+            targets = torch.randn(s, N_QUERIES, c, generator=gen, device=dev)
             idx_t = idx.clone()
             if lvl == 0 and dt_name == "float32":
                 idx_t[:, :, -1] = -1  # padding index gives 0
@@ -366,26 +368,31 @@ def phase_kernels(torch, knn_ops, corr_ops, gen):
             err = float((got - want).abs().max())
             if err > CORR_TOL[dt_name]:
                 raise AssertionError(f"corr level {lvl} {dt_name}: max err {err:.3e} > {CORR_TOL[dt_name]}")
+            if not (torch.equal(corr_ops.corr_select_cuda(fvec, targets, idx_t), got)
+                    and torch.equal(corr_ops.corr_select_cuda(fvec, targets.to(dt), idx_t), got)):
+                raise AssertionError(f"corr level {lvl} {dt_name}: a second run, or targets cast first, differ")
             st["err"] = max(st["err"], err)
             if dt_name != "bfloat16":
-                continue  # the path streams bf16; time that
+                continue  # the path streams a bf16 cloud; time that
             ms = device_ms(lambda: corr_ops.corr_select_cuda(fvec, targets, idx), reps=100)
             host = wrapper_ms(lambda: corr_ops.corr_select_cuda(fvec, targets, idx), reps=100)
             plain = device_ms(lambda: corr_ops.corr_select_plain(fvec, targets, idx), reps=20)
             rows = sum(int(torch.unique(idx[b]).numel()) for b in range(s))
-            nbytes = rows * c * 2 + targets.numel() * 2 + idx.numel() * 8 + idx.numel() * 4
+            # Bytes: the distinct rows (bf16), the targets at the fp32 width the
+            # kernel reads them, the int64 indices and the fp32 output.
+            nbytes = rows * c * 2 + targets.numel() * 4 + idx.numel() * 8 + idx.numel() * 4
             bnd, by = bound(nbytes, 2.0 * idx.numel() * c)
             per_fwd = 3 * ITERS
-            log(f"K2 corr level{lvl}: fvec=[{s},{p},{c}] bf16 idx=[{s},{N_QUERIES},16] kernel_ms={ms:.5f} "
-                f"wrapper_ms={host:.5f} plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}, {rows} distinct rows) "
-                f"launches/forward={per_fwd}")
+            log(f"K2 corr level{lvl}: fvec=[{s},{p},{c}] bf16 targets fp32 idx=[{s},{N_QUERIES},16] "
+                f"kernel_ms={ms:.5f} wrapper_ms={host:.5f} plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}, {rows} "
+                f"distinct rows, targets counted at fp32) launches/forward={per_fwd}")
             add_row(st, ms, plain, bnd, by, per_fwd)
-    log(f"K2 corr checks passed: max abs error {st['err']:.3e} (tol {CORR_TOL})")
+    log(f"K2 corr checks passed: max abs error {st['err']:.3e} (tol {CORR_TOL}); a second run and targets cast "
+        f"first give the same bits")
 
     # K3, the correlation backward, at the shapes a train step gives it: the
     # uncast residuals (bf16 cloud, fp32 track features) and an fp32 gradient.
     st = stats["corr_bwd"]
-    rerun = 0.0
     for lvl, (p, idx) in enumerate(zip(LEVEL_POINTS, level_idx)):
         targets = torch.randn(s, N_QUERIES, c, generator=gen, device=dev)
         g = torch.randn(s, N_QUERIES, 16, generator=gen, device=dev)
@@ -396,7 +403,7 @@ def phase_kernels(torch, knn_ops, corr_ops, gen):
                 idx_t[:, :, -1] = -1  # padding index adds nothing
                 idx_t[:, :, -2] = p  # nor does one past the cloud
             d_fvec, d_targets = corr_ops.corr_select_backward_cuda(fvec, targets, idx_t, g)
-            again, _ = corr_ops.corr_select_backward_cuda(fvec, targets, idx_t, g)
+            again_fvec, again_targets = corr_ops.corr_select_backward_cuda(fvec, targets, idx_t, g)
             want_fvec, want_targets = corr_ops.corr_select_backward_plain(fvec, targets, idx_t, g)
             torch.cuda.synchronize()
             if d_fvec.dtype != dt or d_targets.dtype != torch.float32:
@@ -413,15 +420,15 @@ def phase_kernels(torch, knn_ops, corr_ops, gen):
             if not (ok and err_t <= CORR_BWD_ATOL):
                 raise AssertionError(f"corr backward level {lvl} {dt_name}: d_fvec err {err_f:.3e}, d_targets err {err_t:.3e}")
             st["err"] = max(st["err"], err_t)
-            rerun = max(rerun, float((d_fvec.float() - again.float()).abs().max()))
+            # Both gradients are summed in a fixed order.
+            if not (torch.equal(again_fvec, d_fvec) and torch.equal(again_targets, d_targets)):
+                raise AssertionError(f"corr backward level {lvl} {dt_name}: two runs on one input differ")
             log(f"K3 corr_bwd level{lvl} {dt_name}: d_targets max err {err_t:.3e}, d_fvec max err {err_f:.3e} "
-                f"(values up to {float(want_fvec.float().abs().max()):.1f}), two runs differ by "
-                f"{float((d_fvec.float() - again.float()).abs().max()):.3e}")
+                f"(values up to {float(want_fvec.float().abs().max()):.1f}), two runs give the same bits")
             if dt_name != "bfloat16":
                 continue  # the path's residuals are a bf16 cloud and fp32 targets; time that
             ms = device_ms(lambda: corr_ops.corr_select_backward_cuda(fvec, targets, idx, g), reps=50)
             host = wrapper_ms(lambda: corr_ops.corr_select_backward_cuda(fvec, targets, idx, g), reps=50)
-            fill = device_ms(lambda: torch.zeros((s, p, c), dtype=torch.float32, device=dev).to(dt), reps=50)
             plain = device_ms(lambda: corr_ops.corr_select_backward_plain(fvec, targets, idx, g), reps=10)
             rows = sum(int(torch.unique(idx[b]).numel()) for b in range(s))
             nbytes = (rows * c * 2 + g.numel() * 4 + idx.numel() * 8 + targets.numel() * 4
@@ -429,11 +436,11 @@ def phase_kernels(torch, knn_ops, corr_ops, gen):
             bnd, by = bound(nbytes, 4.0 * idx.numel() * c)
             per_step = 3 * ITERS
             log(f"K3 corr_bwd level{lvl}: fvec=[{s},{p},{c}] bf16 targets fp32 g=[{s},{N_QUERIES},16] "
-                f"function_ms={ms:.5f} (of which zero-fill and cast {fill:.5f}) wrapper_ms={host:.5f} "
+                f"function_ms={ms:.5f} wrapper_ms={host:.5f} "
                 f"plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}, {rows} distinct rows) launches/step={per_step}")
             add_row(st, ms, plain, bnd, by, per_step)
     log(f"K3 corr_bwd checks passed: max abs error {st['err']:.3e} in fp32 (tol {CORR_BWD_ATOL}; a bf16 d_fvec "
-        f"within one bf16 step); atomics: two runs on one input differ by at most {rerun:.3e}")
+        f"within one bf16 step); two runs on one input give the same bits")
     return stats
 
 

@@ -9,33 +9,58 @@
 //     d_fvec[b, p, :]    = sum over (n, k) with idx[b, n, k] == p of
 //                          g[b, n, k] * targets[b, n, :]
 //
-// An index outside [0, P) adds nothing to either. fvec and targets are the
-// uncast tensors the forward was given: the cloud fp32 or bf16, the targets
-// fp32 (the tracker carries its track features in fp32 in both models). All
-// products and sums are fp32, and d_targets is written in fp32.
-// d_fvec is accumulated into an fp32 [B, P, C] buffer that the wrapper hands
-// over zeroed and afterwards casts to fvec's type.
+// An index outside [0, P) adds nothing to either; a row named twice by one
+// (b, n) counts twice. fvec and targets are the uncast tensors the forward
+// was given: the cloud fp32 or bf16, the targets fp32 (the tracker carries
+// its track features in fp32 in both models). All products and sums are
+// fp32; d_targets is written in fp32, d_fvec in fvec's type.
 //
-// What bounds it on the card: memory. Per (b, n, k) it reads one row of C
-// features and adds one row of C floats: 2 multiply-adds per element moved.
-// The least it must move is the distinct gathered rows, g, idx, targets, and
-// the dense d_fvec and d_targets.
+// What bounds it on the card: memory. The least it must move is the dense
+// d_fvec (B*P*C values, almost all zero at the tracker's shapes: 49152
+// contributions land on a level-0 cloud of 196608 rows), the gathered rows,
+// g, idx, targets and d_targets.
 //
-// Design: the forward's layout turned around, and no [B, N*K, C] update
-// tensor in device memory (the JAX backward materialises one, and a gathered
-// [B, N, K, C] copy besides). One warp owns one (b, n). The warp is split
-// into 32/L groups of L lanes; a lane owns one 16-byte chunk of the fvec row
-// (8 bf16 or 4 fp32 features), its slice of the target row held in registers.
-// Each group walks the neighbours k = group, group + 32/L, ...: it reads the
-// neighbour's row chunk with one 16-byte load, adds g * chunk to its fp32
-// d_targets registers, and adds g * target slice into the neighbour's d_fvec
-// row with 16-byte vector atomics (`atomicAdd(float4*)`, sm_90). The groups'
-// d_targets registers are then summed with shuffles and written once,
-// coalesced.
+// Design: d_fvec is a transpose of the scatter, done tile by tile in shared
+// memory, so it never exists in fp32 in device memory and takes no global
+// float atomic.
+// - A block owns R consecutive rows of one b (a tile), all C channels, as
+//   fp32 in shared memory (dynamic shared memory), in `copies` copies. R and
+//   the copies are chosen per call by the wrapper
+//   (`ops/corr.py::corr_backward_plan`): B * ceil(P / R) blocks fill the card
+//   at the small levels, and small tiles get up to 8 copies.
+// - It finds the contributions (n, k) whose index falls in its tile by
+//   scanning all N*K indices of its b in order (a 32 KB read from L2 at the
+//   tracker's shapes), 1024 at a time, compacting the matches in order into a
+//   list in shared memory (a block-wide prefix sum).
+// - The 8 warps split the list: with k copies, warp w takes the entries j
+//   with j % k == w / (8 / k) whose row r has r % (8 / k) == w % (8 / k), and
+//   adds g * targets[b, n, :] onto its copy of the row, in list order, its
+//   lanes covering the row's 16-byte chunks, with up to 4 contributions'
+//   loads in flight. The copies are summed in order at the end. So every
+//   cell is summed by one thread in a fixed order, with no atomic on a float:
+//   the bits of d_fvec are the same from run to run. The copies are there
+//   because the tracker names rows very unequally (at level 3 one cloud point
+//   is a neighbour of up to 187 of 256 queries): with one copy, one warp
+//   walks a hot row's contributions a few at a time while the others idle.
+//   Every contribution reads its target row again from L2 (25 MB a launch at
+//   the tracker's shapes, against 1.5 MB of targets). Spreading a row over
+//   the block with shared-memory float atomics, or grouping the list by row
+//   first, measured slower (`PERF.md`).
+// - It writes its R rows once, coalesced, in fvec's type; rows no index names
+//   come out as zeros from the same write.
+// The other way of finding a tile's contributions, a first pass that buckets
+// the (n, k) by tile (a count, a scan and a scatter with integer atomics), is
+// kept behind `buckets` = 1 for `scripts/profile_torch_corr.py`, which times
+// both; the order within a bucket, and with it d_fvec's last bits, then vary
+// from run to run.
 //
-// The atomics make the order of d_fvec's fp32 sums vary from run to run, so
-// d_fvec is reproducible to fp32 rounding only, not bit for bit. d_targets
-// is summed in a fixed order and is deterministic.
+// d_targets is a gather, the forward's layout: a warp per (b, n), the K
+// indices and gradients loaded once, a lane per neighbour, and handed round
+// with shuffles; L lanes cover one row in 16-byte chunks, each lane issues
+// all its neighbours' row loads before it uses them, and the 32 / L groups'
+// fp32 partial sums are combined with shuffles in a fixed order.
+//
+// One C call launches both (and the bucket pass when asked).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,146 +68,428 @@
 
 namespace {
 
-constexpr int kWarps = 8;  // (b, n) rows per block, one warp each
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 256;        // threads of a tile block
+constexpr int kTileWarps = kThreads / 32;
+// Index entries scanned, and at most listed, per round: a longer list takes
+// shared memory that would let a multiprocessor hold more blocks.
+constexpr int kList = 1024;
+constexpr int kPerThread = kList / kThreads;
+constexpr int kInFlight = 4;         // contributions whose loads are in flight together
+// Dynamic shared memory a tile may take: 196 KB, beside the 8 KB of lists,
+// within the 227 KB a block can have. The wrapper's plan takes less
+// (`ops/corr.py`).
+constexpr int kMaxTileBytes = 196 * 1024;
+constexpr int kGatherWarps = 8;      // (b, n) rows per d_targets block
+constexpr int kChunk = 16;           // neighbours whose loads are in flight together
 
-// N consecutive elements (N = 4 or 8) -> fp32 registers, widest aligned loads.
-template <int N>
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
+// Exclusive prefix sum of one int per thread over the block; returns the
+// thread's offset and sets *total. Needs `scratch` of kTileWarps + 1 ints.
+__device__ __forceinline__ int block_exclusive_scan(int x, int* scratch, int* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int inc = x;
 #pragma unroll
-  for (int q = 0; q < N / 4; ++q) {
-    const float4 x = reinterpret_cast<const float4*>(p)[q];
-    out[4 * q + 0] = x.x;
-    out[4 * q + 1] = x.y;
-    out[4 * q + 2] = x.z;
-    out[4 * q + 3] = x.w;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(kFull, inc, off);
+    if (lane >= off) inc += y;
+  }
+  if (lane == 31) scratch[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < kTileWarps ? scratch[lane] : 0;
+    int winc = w;
+#pragma unroll
+    for (int off = 1; off < kTileWarps; off <<= 1) {
+      const int y = __shfl_up_sync(kFull, winc, off);
+      if (lane >= off) winc += y;
+    }
+    if (lane < kTileWarps) scratch[lane] = winc - w;
+    if (lane == kTileWarps - 1) scratch[kTileWarps] = winc;
+  }
+  __syncthreads();
+  const int offset = scratch[warp] + inc - x;
+  *total = scratch[kTileWarps];
+  __syncthreads();  // scratch may be reused right after
+  return offset;
+}
+
+__device__ __forceinline__ void store_row4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+
+__device__ __forceinline__ void store_row4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v.x, v.y), __floats2bfloat162_rn(v.z, v.w)};
+  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
+}
+
+// d_fvec, one tile of `rows` rows of one b per block.
+template <typename TF, bool kBuckets>
+__global__ void __launch_bounds__(kThreads)
+corr_bwd_tile_kernel(const float* __restrict__ targets, const int64_t* __restrict__ idx,
+                     const float* __restrict__ g, TF* __restrict__ d_fvec,
+                     const int* __restrict__ bucket_count, const int* __restrict__ bucket_start,
+                     const int* __restrict__ bucket_list, int n, int p, int k, int c, int rows,
+                     int tiles, int copies) {
+  extern __shared__ float4 tile[];  // [copies][rows][c / 4] fp32
+  __shared__ int list_e[kList];  // listed entries n * k + k' within b, in scan order
+  __shared__ int list_r[kList];  // their rows within the tile
+  __shared__ int scan_scratch[kTileWarps + 1];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int groups = kTileWarps >> (31 - __clz(copies));  // warps that split the rows of one copy
+  float4* mine = tile + (warp / groups) * rows * (c / 4);  // this warp's copy
+  const int b = blockIdx.x / tiles;
+  const int row0 = (blockIdx.x % tiles) * rows;
+  const int nrows = min(rows, p - row0);
+  const int nc4 = c / 4;
+  const int cells = nrows * nc4;
+  const int total = n * k;
+  const int64_t* ib = idx + (size_t)b * total;
+  const float* gb = g + (size_t)b * total;
+  const float4* tb = reinterpret_cast<const float4*>(targets + (size_t)b * n * c);
+
+  for (int i = tid; i < copies * rows * nc4; i += kThreads) tile[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  int rounds_end = total;  // entries (scan) or bucket positions (buckets) to walk
+  int start = 0;
+  if constexpr (kBuckets) {
+    rounds_end = bucket_count[blockIdx.x];
+    start = bucket_start[blockIdx.x];
+  }
+  for (int e0 = 0; e0 < rounds_end; e0 += kList) {
+    int listed;
+    if constexpr (kBuckets) {
+      listed = min(kList, rounds_end - e0);
+      for (int q = tid; q < listed; q += kThreads) {
+        const int e = bucket_list[(size_t)b * total + start + e0 + q];
+        list_e[q] = e;
+        list_r[q] = static_cast<int>(ib[e]) - row0;
+      }
+    } else {
+      // Entries e0 + tid * kPerThread + j, in order; keep those in the tile.
+      int local[kPerThread];
+      int hits = 0;
+#pragma unroll
+      for (int j = 0; j < kPerThread; ++j) {
+        const int e = e0 + tid * kPerThread + j;
+        local[j] = -1;
+        if (e < total) {
+          const int64_t r = ib[e] - row0;
+          if (r >= 0 && r < nrows) {
+            local[j] = static_cast<int>(r);
+            ++hits;
+          }
+        }
+      }
+      int pos = block_exclusive_scan(hits, scan_scratch, &listed);
+#pragma unroll
+      for (int j = 0; j < kPerThread; ++j) {
+        if (local[j] >= 0) {
+          list_e[pos] = e0 + tid * kPerThread + j;
+          list_r[pos] = local[j];
+          ++pos;
+        }
+      }
+    }
+    __syncthreads();
+    // Warp w adds its share of the list to its copy, in list order: the
+    // entries j with j % copies == w / groups whose row r has
+    // r % groups == w % groups.
+    for (int j0 = 0; j0 < listed; j0 += 32) {
+      const int jj = j0 + lane;
+      unsigned own = __ballot_sync(
+          kFull, jj < listed && jj % copies == warp / groups && list_r[jj] % groups == warp % groups);
+      while (own) {  // warp-uniform
+        int sel[kInFlight];
+#pragma unroll
+        for (int q = 0; q < kInFlight; ++q) {
+          sel[q] = -1;
+          if (own) {
+            sel[q] = j0 + __ffs(own) - 1;
+            own &= own - 1;
+          }
+        }
+        for (int v = lane; v < nc4; v += 32) {
+          float4 t[kInFlight];
+          float gq[kInFlight];
+#pragma unroll
+          for (int q = 0; q < kInFlight; ++q) {  // g and the target chunks load together
+            if (sel[q] < 0) continue;
+            const int e = list_e[sel[q]];
+            gq[q] = gb[e];
+            t[q] = tb[(size_t)(e / k) * nc4 + v];
+          }
+#pragma unroll
+          for (int q = 0; q < kInFlight; ++q) {
+            if (sel[q] < 0) continue;
+            float4& a = mine[list_r[sel[q]] * nc4 + v];
+            a.x += gq[q] * t[q].x;
+            a.y += gq[q] * t[q].y;
+            a.z += gq[q] * t[q].z;
+            a.w += gq[q] * t[q].w;
+          }
+        }
+      }
+    }
+    __syncthreads();  // the lists are refilled next round; the tile is read below
+  }
+
+  // The copies summed in order, written once.
+  TF* out = d_fvec + ((size_t)b * p + row0) * c;
+  for (int i = tid; i < cells; i += kThreads) {
+    float4 sum = tile[i];
+    for (int cp = 1; cp < copies; ++cp) {
+      const float4 x = tile[cp * rows * nc4 + i];
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    store_row4(out + (size_t)i * 4, sum);
   }
 }
 
-template <int N>
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
-  alignas(16) __nv_bfloat162 pairs[N / 2];
-  if constexpr (N == 8) {
-    *reinterpret_cast<uint4*>(pairs) = *reinterpret_cast<const uint4*>(p);
-  } else {
-    *reinterpret_cast<uint2*>(pairs) = *reinterpret_cast<const uint2*>(p);
-  }
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) {
-    const float2 u = __bfloat1622float2(pairs[i]);
-    out[2 * i + 0] = u.x;
-    out[2 * i + 1] = u.y;
+// Bucket pass 1: contributions per (b, tile).
+__global__ void bucket_count_kernel(const int64_t* __restrict__ idx, int* __restrict__ count,
+                                    int b, int n, int p, int k, int rows, int tiles) {
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (int64_t)b * n * k) return;
+  const int64_t j = idx[e];
+  if (j < 0 || j >= p) return;
+  atomicAdd(&count[(e / ((int64_t)n * k)) * tiles + j / rows], 1);
+}
+
+// Bucket pass 2: each b's bucket starts, an exclusive scan over its tiles.
+__global__ void __launch_bounds__(kThreads)
+bucket_scan_kernel(const int* __restrict__ count, int* __restrict__ start, int tiles) {
+  __shared__ int scratch[kTileWarps + 1];
+  const int* cb = count + (size_t)blockIdx.x * tiles;
+  int* sb = start + (size_t)blockIdx.x * tiles;
+  int carry = 0;
+  for (int t0 = 0; t0 < tiles; t0 += kThreads) {
+    const int t = t0 + threadIdx.x;
+    int total;
+    const int off = block_exclusive_scan(t < tiles ? cb[t] : 0, scratch, &total);
+    if (t < tiles) sb[t] = carry + off;
+    carry += total;
   }
 }
 
-template <int N>
-__device__ __forceinline__ void store_vec(float* p, const float* v) {
-#pragma unroll
-  for (int q = 0; q < N / 4; ++q) {
-    reinterpret_cast<float4*>(p)[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-  }
+// Bucket pass 3: each contribution's entry number into its bucket.
+__global__ void bucket_scatter_kernel(const int64_t* __restrict__ idx, const int* __restrict__ start,
+                                      int* __restrict__ fill, int* __restrict__ list, int b, int n,
+                                      int p, int k, int rows, int tiles) {
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t total = (int64_t)n * k;
+  if (e >= (int64_t)b * total) return;
+  const int64_t j = idx[e];
+  if (j < 0 || j >= p) return;
+  const int64_t bi = e / total;
+  const int64_t bucket = bi * tiles + j / rows;
+  const int pos = start[bucket] + atomicAdd(&fill[bucket], 1);
+  list[bi * total + pos] = static_cast<int>(e - bi * total);
 }
 
-#if !defined(CUDART_VERSION) || CUDART_VERSION < 12010
-#error "corr_bwd.cu needs CUDA 12.1 or later for atomicAdd(float4*)"
-#endif
+// d_targets: a warp per (b, n); L lanes per row, 32 / L groups of neighbours.
+template <typename TF>
+struct Chunk;
+
+template <>
+struct Chunk<float> {
+  static constexpr int kVec = 4;
+  using Raw = float4;
+  __device__ static void to_float(const Raw& r, float* f) {
+    f[0] = r.x; f[1] = r.y; f[2] = r.z; f[3] = r.w;
+  }
+};
+
+template <>
+struct Chunk<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  using Raw = uint4;
+  __device__ static void to_float(const Raw& r, float* f) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 u = __bfloat1622float2(h[i]);
+      f[2 * i] = u.x;
+      f[2 * i + 1] = u.y;
+    }
+  }
+};
 
 template <typename TF, int L>
-__global__ void __launch_bounds__(kWarps * 32)
-corr_bwd_kernel(const TF* __restrict__ fvec, const float* __restrict__ targets,
-                const int64_t* __restrict__ idx, const float* __restrict__ g,
-                float* __restrict__ d_targets, float* __restrict__ d_fvec,
-                int rows, int n, int p, int k, int c) {
-  constexpr int kVec = 16 / sizeof(TF);  // features per lane and pass
-  constexpr int kGroups = 32 / L;        // neighbours handled at once
+__global__ void __launch_bounds__(kGatherWarps * 32)
+corr_bwd_gather_kernel(const TF* __restrict__ fvec, const int64_t* __restrict__ idx,
+                       const float* __restrict__ g, float* __restrict__ d_targets, int rows,
+                       int n, int p, int k, int c) {
+  using Raw = typename Chunk<TF>::Raw;
+  constexpr int kVec = Chunk<TF>::kVec;
+  constexpr int kGroups = 32 / L;
+  constexpr int V = kChunk >= kGroups ? kChunk / kGroups : 1;  // neighbour slots per lane
 
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);  // b * n + i
+  const int row = blockIdx.x * kGatherWarps + (threadIdx.x >> 5);  // b * n + i
   if (row >= rows) return;  // uniform across the warp
   const int b = row / n;
   const int sub = lane % L;
   const int grp = lane / L;
   const int nvec = c / kVec;
-
-  const float* trow = targets + (size_t)row * c;
-  float* drow = d_targets + (size_t)row * c;
   const TF* cloud = fvec + (size_t)b * p * c;
-  float* dcloud = d_fvec + (size_t)b * p * c;
   const int64_t* irow = idx + (size_t)row * k;
   const float* grow = g + (size_t)row * k;
+  float* drow = d_targets + (size_t)row * c;
 
   for (int v0 = 0; v0 < nvec; v0 += L) {  // same trip count for every lane
     const int v = v0 + sub;
-    const bool own = v < nvec;
-    float t[kVec];
     float acc[kVec];
 #pragma unroll
     for (int i = 0; i < kVec; ++i) acc[i] = 0.f;
-    if (own) {
-      load_vec<kVec>(trow + v * kVec, t);
-      for (int kk = grp; kk < k; kk += kGroups) {
-        const int64_t j = irow[kk];
-        if (j < 0 || j >= p) continue;
-        const float gk = grow[kk];
-        float f[kVec];
-        load_vec<kVec>(cloud + (size_t)j * c + v * kVec, f);
-        float* dst = dcloud + (size_t)j * c + v * kVec;
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) acc[i] += gk * f[i];
-#pragma unroll
-        for (int q = 0; q < kVec / 4; ++q) {
-          atomicAdd(reinterpret_cast<float4*>(dst) + q,
-                    make_float4(gk * t[4 * q], gk * t[4 * q + 1], gk * t[4 * q + 2], gk * t[4 * q + 3]));
+    for (int k0 = 0; k0 < k; k0 += kChunk) {
+      // The chunk's indices and gradients, a lane per neighbour; an index
+      // past K or outside [0, P) becomes -1.
+      int mine = -1;
+      float gmine = 0.f;
+      if (lane < kChunk && k0 + lane < k) {
+        const int64_t j = irow[k0 + lane];
+        if (j >= 0 && j < p) {
+          mine = static_cast<int>(j);
+          gmine = grow[k0 + lane];
         }
       }
+      int j[V];
+      float gk[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const int slot = grp + i * kGroups;  // < 32
+        const int got = __shfl_sync(kFull, mine, slot);
+        gk[i] = __shfl_sync(kFull, gmine, slot);
+        j[i] = slot < kChunk && v < nvec ? got : -1;
+      }
+      Raw raw[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {  // every row load issued before any use
+        if (j[i] >= 0) raw[i] = reinterpret_cast<const Raw*>(cloud + (size_t)j[i] * c)[v];
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        if (j[i] < 0) continue;
+        float f[kVec];
+        Chunk<TF>::to_float(raw[i], f);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) acc[e] += gk[i] * f[e];
+      }
     }
-    // Sum the groups' partial d_targets; every lane takes part.
+    // Sum the groups' partial rows; every lane takes part.
 #pragma unroll
     for (int off = L; off < 32; off <<= 1) {
 #pragma unroll
       for (int i = 0; i < kVec; ++i) acc[i] += __shfl_xor_sync(kFull, acc[i], off);
     }
-    if (own && grp == 0) store_vec<kVec>(drow + v * kVec, acc);
+    if (grp == 0 && v < nvec) {
+#pragma unroll
+      for (int q = 0; q < kVec / 4; ++q) {
+        reinterpret_cast<float4*>(drow + (size_t)v * kVec)[q] =
+            make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+      }
+    }
   }
 }
 
 template <typename TF, int L>
-cudaError_t launch(const void* fvec, const float* targets, const int64_t* idx, const float* g,
-                   float* d_targets, float* d_fvec, int b, int n, int p, int k, int c,
-                   cudaStream_t stream) {
+cudaError_t launch_gather(const void* fvec, const int64_t* idx, const float* g, float* d_targets,
+                          int b, int n, int p, int k, int c, cudaStream_t s) {
   const int rows = b * n;
-  const int blocks = (rows + kWarps - 1) / kWarps;
-  corr_bwd_kernel<TF, L><<<blocks, kWarps * 32, 0, stream>>>(
-      static_cast<const TF*>(fvec), targets, idx, g, d_targets, d_fvec, rows, n, p, k, c);
+  const int blocks = (rows + kGatherWarps - 1) / kGatherWarps;
+  corr_bwd_gather_kernel<TF, L><<<blocks, kGatherWarps * 32, 0, s>>>(
+      static_cast<const TF*>(fvec), idx, g, d_targets, rows, n, p, k, c);
   return cudaGetLastError();
 }
 
 template <typename TF>
-cudaError_t dispatch(const void* fvec, const float* targets, const int64_t* idx, const float* g,
-                     float* d_targets, float* d_fvec, int b, int n, int p, int k, int c,
-                     cudaStream_t s) {
-  const int nvec = c / (16 / static_cast<int>(sizeof(TF)));
-  if (nvec <= 1) return launch<TF, 1>(fvec, targets, idx, g, d_targets, d_fvec, b, n, p, k, c, s);
-  if (nvec <= 2) return launch<TF, 2>(fvec, targets, idx, g, d_targets, d_fvec, b, n, p, k, c, s);
-  if (nvec <= 4) return launch<TF, 4>(fvec, targets, idx, g, d_targets, d_fvec, b, n, p, k, c, s);
-  if (nvec <= 8) return launch<TF, 8>(fvec, targets, idx, g, d_targets, d_fvec, b, n, p, k, c, s);
-  if (nvec <= 16) return launch<TF, 16>(fvec, targets, idx, g, d_targets, d_fvec, b, n, p, k, c, s);
-  return launch<TF, 32>(fvec, targets, idx, g, d_targets, d_fvec, b, n, p, k, c, s);
+cudaError_t gather(const void* fvec, const int64_t* idx, const float* g, float* d_targets, int b,
+                   int n, int p, int k, int c, cudaStream_t s) {
+  const int nvec = c / Chunk<TF>::kVec;
+  if (nvec <= 2) return launch_gather<TF, 2>(fvec, idx, g, d_targets, b, n, p, k, c, s);
+  if (nvec <= 4) return launch_gather<TF, 4>(fvec, idx, g, d_targets, b, n, p, k, c, s);
+  if (nvec <= 8) return launch_gather<TF, 8>(fvec, idx, g, d_targets, b, n, p, k, c, s);
+  if (nvec <= 16) return launch_gather<TF, 16>(fvec, idx, g, d_targets, b, n, p, k, c, s);
+  return launch_gather<TF, 32>(fvec, idx, g, d_targets, b, n, p, k, c, s);
+}
+
+template <typename TF, bool kBuckets>
+cudaError_t launch_tiles(const float* targets, const int64_t* idx, const float* g, void* d_fvec,
+                         const int* count, const int* start, const int* list, int b, int n, int p,
+                         int k, int c, int rows, int tiles, int copies, cudaStream_t s) {
+  auto kernel = corr_bwd_tile_kernel<TF, kBuckets>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxTileBytes);
+  if (attr != cudaSuccess) return attr;
+  const size_t smem = (size_t)copies * rows * c * sizeof(float);
+  kernel<<<b * tiles, kThreads, smem, s>>>(targets, idx, g, static_cast<TF*>(d_fvec), count, start,
+                                          list, n, p, k, c, rows, tiles, copies);
+  return cudaGetLastError();
+}
+
+template <typename TF>
+cudaError_t backward(const void* fvec, const float* targets, const int64_t* idx, const float* g,
+                     float* d_targets, void* d_fvec, int* scratch, int b, int n, int p, int k,
+                     int c, int rows, int tiles, int copies, int buckets, cudaStream_t s) {
+  cudaError_t err = cudaSuccess;
+  if (b > 0 && tiles > 0) {
+    if (buckets) {
+      // scratch: count and fill [b * tiles] (zeroed here), start [b * tiles], list [b * n * k].
+      const size_t nb = (size_t)b * tiles;
+      int* count = scratch;
+      int* fill = scratch + nb;
+      int* start = scratch + 2 * nb;
+      int* list = scratch + 3 * nb;
+      err = cudaMemsetAsync(scratch, 0, 2 * nb * sizeof(int), s);
+      if (err != cudaSuccess) return err;
+      const int64_t entries = (int64_t)b * n * k;
+      if (entries > 0) {
+        const int blocks = static_cast<int>((entries + kThreads - 1) / kThreads);
+        bucket_count_kernel<<<blocks, kThreads, 0, s>>>(idx, count, b, n, p, k, rows, tiles);
+        bucket_scan_kernel<<<b, kThreads, 0, s>>>(count, start, tiles);
+        bucket_scatter_kernel<<<blocks, kThreads, 0, s>>>(idx, start, fill, list, b, n, p, k, rows, tiles);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      }
+      err = launch_tiles<TF, true>(targets, idx, g, d_fvec, count, start, list, b, n, p, k, c, rows,
+                                   tiles, copies, s);
+    } else {
+      err = launch_tiles<TF, false>(targets, idx, g, d_fvec, nullptr, nullptr, nullptr, b, n, p, k, c,
+                                    rows, tiles, copies, s);
+    }
+    if (err != cudaSuccess) return err;
+  }
+  if (b > 0 && n > 0) err = gather<TF>(fvec, idx, g, d_targets, b, n, p, k, c, s);
+  return err;
 }
 
 }  // namespace
 
 // fvec_dtype: 0 = float32, 1 = bfloat16. c must be a multiple of 16 bytes'
 // worth of fvec elements, fvec and targets 16-byte aligned (checked by the
-// Python wrapper). d_fvec must arrive zeroed.
+// Python wrapper). The tile plan: `tiles` tiles of `rows` rows cover P, each
+// held in `copies` (1, 2, 4 or 8) fp32 copies that fit kMaxTileBytes
+// together. buckets = 0 scans the indices per
+// tile (the path), 1 buckets them first and needs `scratch` of
+// 3 * b * tiles + b * n * k ints.
 extern "C" int corr_backward(const void* fvec, const float* targets, const int64_t* idx,
-                             const float* g, float* d_targets, float* d_fvec, int b, int n,
-                             int p, int k, int c, int fvec_dtype, void* stream) {
+                             const float* g, float* d_targets, void* d_fvec, int* scratch, int b,
+                             int n, int p, int k, int c, int rows, int tiles, int copies,
+                             int fvec_dtype, int buckets, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows < 1 || (int64_t)rows * tiles < p || (copies != 1 && copies != 2 && copies != 4 && copies != 8) ||
+      (int64_t)copies * rows * c * 4 > kMaxTileBytes || (buckets && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (fvec_dtype == 0)
-    return dispatch<float>(fvec, targets, idx, g, d_targets, d_fvec, b, n, p, k, c, s);
+    return backward<float>(fvec, targets, idx, g, d_targets, d_fvec, scratch, b, n, p, k, c, rows,
+                           tiles, copies, buckets, s);
   if (fvec_dtype == 1)
-    return dispatch<__nv_bfloat16>(fvec, targets, idx, g, d_targets, d_fvec, b, n, p, k, c, s);
+    return backward<__nv_bfloat16>(fvec, targets, idx, g, d_targets, d_fvec, scratch, b, n, p, k, c,
+                                   rows, tiles, copies, buckets, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

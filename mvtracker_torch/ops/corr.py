@@ -8,7 +8,8 @@ correlate them with per-track target features:
 The single-group case, the tracker's configuration, goes through the
 `torch.autograd.Function` `CorrSelect`, the counterpart of the JAX
 package's `custom_vjp` around `corr_select_pallas`. It takes the uncast
-cloud features and targets and casts them to the compute dtype inside:
+cloud features and targets and casts them to the compute dtype inside (the
+fp32 targets of a bf16 call are rounded by the kernel itself, as they load):
 
 - forward: `corr_select`, which is the CUDA kernel `csrc/corr.cu` on CUDA
   tensors (it replaces the forward of
@@ -28,6 +29,7 @@ JAX package.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -60,9 +62,11 @@ def grouped_correlation(targets: torch.Tensor, neighbor_fvec: torch.Tensor, grou
 def corr_select_plain(fvec: torch.Tensor, targets: torch.Tensor, idx: torch.Tensor):
     """Plain version of the kernel: [B, P, C], [B, N, C], [B, N, K] ->
     [B, N, K] fp32 (float64 for float64 inputs), unscaled; an index outside
-    [0, P) gives 0."""
+    [0, P) gives 0. Targets of another dtype than `fvec` are rounded to
+    `fvec`'s first, as the kernel does with fp32 targets for a bf16 cloud."""
     p = fvec.shape[1]
-    acc = torch.promote_types(torch.float32, torch.promote_types(fvec.dtype, targets.dtype))
+    targets = targets.to(fvec.dtype)
+    acc = torch.promote_types(torch.float32, fvec.dtype)
     valid = (idx >= 0) & (idx < p)
     rows = gather_neighbors(fvec, torch.where(valid, idx, torch.zeros_like(idx)))
     corr = torch.einsum("bnc,bnkc->bnk", targets.to(acc), rows.to(acc))
@@ -70,13 +74,17 @@ def corr_select_plain(fvec: torch.Tensor, targets: torch.Tensor, idx: torch.Tens
 
 
 def corr_select_cuda(fvec: torch.Tensor, targets: torch.Tensor, idx: torch.Tensor):
-    """The CUDA kernel `csrc/corr.cu`; same contract as `corr_select_plain`.
-    Adds one to `corr_select_cuda.launches` per kernel launch."""
+    """The CUDA kernel `csrc/corr.cu`; same contract as `corr_select_plain`,
+    for float32 or bfloat16 of one type, or a bfloat16 fvec with float32
+    targets (rounded to bfloat16 in the kernel as they load). The sums run in
+    a fixed order: the same inputs give the same bits. Adds one to
+    `corr_select_cuda.launches` per kernel launch."""
     if not (fvec.is_cuda and targets.device == fvec.device and idx.device == fvec.device):
         raise ValueError("corr_select_cuda needs fvec, targets and idx on one CUDA device")
-    if fvec.dtype not in _DTYPE_CODES or targets.dtype != fvec.dtype:
+    if fvec.dtype not in _DTYPE_CODES or targets.dtype not in (fvec.dtype, torch.float32):
         raise TypeError(
-            f"corr_select_cuda takes float32 or bfloat16 of one type, got {fvec.dtype}, {targets.dtype}"
+            f"corr_select_cuda takes float32 or bfloat16 of one type, or a bfloat16 fvec with float32 "
+            f"targets, got {fvec.dtype}, {targets.dtype}"
         )
     if idx.dtype != torch.int64:
         raise TypeError(f"corr_select_cuda takes int64 indices, got {idx.dtype}")
@@ -105,7 +113,7 @@ def corr_select_cuda(fvec: torch.Tensor, targets: torch.Tensor, idx: torch.Tenso
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.corr_forward(
             fvec.data_ptr(), targets.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            b, n, p, k, c, _DTYPE_CODES[fvec.dtype], stream,
+            b, n, p, k, c, _DTYPE_CODES[fvec.dtype], _DTYPE_CODES[targets.dtype], stream,
         )
     _cuda.check(lib, status, "corr_select_cuda")
     corr_select_cuda.launches += 1
@@ -139,15 +147,54 @@ def corr_select_backward_plain(fvec: torch.Tensor, targets: torch.Tensor, idx: t
     return d_fvec.reshape(b, p, c).to(fvec.dtype), d_targets
 
 
-def corr_select_backward_cuda(fvec: torch.Tensor, targets: torch.Tensor, idx: torch.Tensor, g: torch.Tensor):
-    """The CUDA kernel `csrc/corr_bwd.cu`; same contract as
-    `corr_select_backward_plain`, for a float32 or bfloat16 fvec and float32
-    targets (the tracker's track features are fp32 in both models). Adds one to `corr_select_backward_cuda.launches` per kernel
-    launch.
+# Shared memory a block of the backward gives its tile of d_fvec rows (fp32,
+# all C channels, all copies); `csrc/corr_bwd.cu` takes up to 196 KB.
+CORR_BWD_TILE_BYTES = 64 * 1024
+# Tile blocks wanted per multiprocessor where the cloud is small: a block's
+# time is a chain of memory latencies, so several share each multiprocessor.
+CORR_BWD_BLOCKS_PER_SM = 4
 
-    `d_fvec` is summed with atomics into a zeroed fp32 buffer and then cast,
-    so the order of its fp32 sums, and with it the last bits, vary from run
-    to run; `d_targets` is summed in a fixed order.
+
+def corr_backward_copies(rows: int, c: int) -> int:
+    """fp32 copies of a tile of `rows` rows that the backward's block keeps,
+    the most of 1, 2, 4, 8 that fit `CORR_BWD_TILE_BYTES`: with k copies,
+    k warps share a row, each summing every k-th contribution, and the
+    copies are summed at the end. Small tiles, where few rows take most
+    contributions, get 8."""
+    copies = 8
+    while copies > 1 and copies * rows * c * 4 > CORR_BWD_TILE_BYTES:
+        copies //= 2
+    return copies
+
+
+def corr_backward_plan(b: int, p: int, c: int, sms: int) -> tuple[int, int, int]:
+    """(rows, tiles, copies) for the backward's d_fvec pass: each of `b` clouds
+    of `p` rows is cut into `tiles` tiles of `rows` rows, one block each. A
+    tile holds at most `CORR_BWD_TILE_BYTES` of fp32 rows; within that, tiles
+    are made small enough that b * tiles reaches `CORR_BWD_BLOCKS_PER_SM`
+    blocks on each of the card's `sms` multiprocessors, so that small clouds
+    fill the card too. `copies` from `corr_backward_copies`."""
+    cap = max(1, CORR_BWD_TILE_BYTES // (4 * c))
+    want = -(-CORR_BWD_BLOCKS_PER_SM * sms // max(b, 1))
+    rows = max(1, min(cap, -(-p // want)))
+    return rows, -(-p // rows), corr_backward_copies(rows, c)
+
+
+@functools.lru_cache(maxsize=None)
+def _multiprocessors(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def corr_select_backward_cuda(fvec: torch.Tensor, targets: torch.Tensor, idx: torch.Tensor, g: torch.Tensor):
+    """The CUDA kernels `csrc/corr_bwd.cu`, launched by one C call; same
+    contract as `corr_select_backward_plain`, for a float32 or bfloat16 fvec
+    and float32 targets (the tracker's track features are fp32 in both
+    models). Adds one to `corr_select_backward_cuda.launches` per call that
+    launches them.
+
+    `d_fvec` is summed tile by tile in shared memory and written once in
+    fvec's dtype; both gradients are summed in a fixed order, so the same
+    inputs give the same bits.
     """
     if not (fvec.is_cuda and all(t.device == fvec.device for t in (targets, idx, g))):
         raise ValueError("corr_select_backward_cuda needs fvec, targets, idx and g on one CUDA device")
@@ -176,20 +223,21 @@ def corr_select_backward_cuda(fvec: torch.Tensor, targets: torch.Tensor, idx: to
         raise ValueError("corr_select_backward_cuda needs 16-byte aligned fvec and targets")
     if max(b * n * k, b * n) >= 2**31:
         raise ValueError("corr_select_backward_cuda: tensor too large for the kernel's indexing")
+    d_fvec = torch.empty_like(fvec)
     d_targets = torch.empty_like(targets)
-    acc = torch.zeros((b, p, c), dtype=torch.float32, device=fvec.device)
-    if idx.numel() == 0:
-        return acc.to(fvec.dtype), d_targets.zero_()
+    if d_fvec.numel() == 0 and d_targets.numel() == 0:
+        return d_fvec, d_targets
+    rows, tiles, copies = corr_backward_plan(b, p, c, _multiprocessors(fvec.device.index))
     lib = _cuda.load("corr_bwd")
     with torch.cuda.device(fvec.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.corr_backward(
-            fvec.data_ptr(), targets.data_ptr(), idx.data_ptr(), g.data_ptr(), d_targets.data_ptr(), acc.data_ptr(),
-            b, n, p, k, c, _DTYPE_CODES[fvec.dtype], stream,
+            fvec.data_ptr(), targets.data_ptr(), idx.data_ptr(), g.data_ptr(), d_targets.data_ptr(),
+            d_fvec.data_ptr(), None, b, n, p, k, c, rows, tiles, copies, _DTYPE_CODES[fvec.dtype], 0, stream,
         )
     _cuda.check(lib, status, "corr_select_backward_cuda")
     corr_select_backward_cuda.launches += 1
-    return acc.to(fvec.dtype), d_targets
+    return d_fvec, d_targets
 
 
 corr_select_backward_cuda.launches = 0
@@ -221,10 +269,12 @@ class CorrSelect(torch.autograd.Function):
 
     Takes the uncast `cloud_fvec` [B, P, C], `targets` [B, N, C], int64
     `idx` [B, N, K] and the compute dtype (None = float32). The forward
-    casts both to the compute dtype and correlates; the uncast tensors are
-    what is saved. The backward works on them in fp32 and returns `d_fvec`
-    in `cloud_fvec.dtype` and `d_targets` in `targets.dtype`, so a cast to
-    bf16 rounds the forward's operands only, never the gradients' factors.
+    casts both to the compute dtype and correlates (fp32 targets go to
+    `corr_select` as they are, which rounds them to the cloud's dtype: no
+    separate cast); the uncast tensors are what is saved. The backward works
+    on them in fp32 and returns `d_fvec` in `cloud_fvec.dtype` and
+    `d_targets` in `targets.dtype`, so a cast to bf16 rounds the forward's
+    operands only, never the gradients' factors.
     """
 
     @staticmethod
@@ -232,7 +282,9 @@ class CorrSelect(torch.autograd.Function):
         dt = torch.float32 if compute_dtype is None else compute_dtype
         cloud_fvec, targets, idx = cloud_fvec.contiguous(), targets.contiguous(), idx.contiguous()
         ctx.save_for_backward(cloud_fvec, targets, idx)
-        return corr_select(cloud_fvec.to(dt), targets.to(dt), idx)
+        if targets.dtype != torch.float32:
+            targets = targets.to(dt)
+        return corr_select(cloud_fvec.to(dt), targets, idx)
 
     @staticmethod
     @torch.autograd.function.once_differentiable

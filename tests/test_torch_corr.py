@@ -66,6 +66,46 @@ def test_corr_sample_matches_gather_path(rng, groups, add_xyz):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FP32_ATOL)
 
 
+def test_corr_select_plain_rounds_fp32_targets_to_the_cloud_dtype(rng):
+    """The tracker's bf16 call hands fp32 targets to a bf16 cloud: the plain
+    version rounds them first, so it computes what the call with the targets
+    cast beforehand computes, bit for bit (the kernel does the same)."""
+    fvec, targets, idx = _inputs(rng, 2, 300, 32, 20, 8)
+    idx[:, :, 0] = -1
+    f = torch.from_numpy(fvec).bfloat16()
+    t = torch.from_numpy(targets)
+    i = torch.from_numpy(idx)
+    got = t_corr.corr_select_plain(f, t, i)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, t_corr.corr_select_plain(f, t.bfloat16(), i))
+    assert torch.equal(got, t_corr.corr_select(f, t, i))
+    # and it is not the fp32 product of the unrounded targets
+    assert float((got - t_corr.corr_select_plain(f.float(), t, i)).abs().max()) > 1e-4
+
+
+# The card the backward's tile plan is checked for: an H100 has 132 multiprocessors.
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("b,p,c", [
+    (12, 16384, 128), (12, 4096, 128), (12, 1024, 128), (12, 256, 128),  # the path's four levels
+    (12, 281600, 128), (1, 1, 8), (2, 1001, 40), (200, 3, 256), (1, 100000, 4),
+])
+def test_corr_backward_plan(b, p, c):
+    """Tiles cover every row once, fit shared memory with their copies, and at
+    the path's levels give the card at least one block per multiprocessor."""
+    rows, tiles, copies = t_corr.corr_backward_plan(b, p, c, H100_SMS)
+    assert rows >= 1 and (tiles - 1) * rows < p <= tiles * rows
+    covered = np.zeros(p, int)
+    for t in range(tiles):
+        covered[t * rows: min(p, (t + 1) * rows)] += 1
+    assert (covered == 1).all()
+    assert copies in (1, 2, 4, 8)
+    assert copies * rows * c * 4 <= t_corr.CORR_BWD_TILE_BYTES <= 196 * 1024  # the kernel's limit, within 227 KB
+    if c == 128 and p <= 16384:
+        assert b * tiles >= H100_SMS
+
+
 def test_cuda_wrapper_rejects_cpu_tensors():
     x = torch.zeros(1, 4, 8)
     with pytest.raises(ValueError, match="CUDA"):
@@ -130,6 +170,13 @@ def test_corr_select_gradients_match_pallas_vjp(rng, dtype):
     fvec, targets, idx = _inputs(rng, b, p, c, n, k)
     g = rng.normal(size=(b, n, k)).astype(np.float32)
     (want_f, want_t), (got_f, got_t) = _grads_both(fvec, targets, idx, g, dtype)
+    # The forward too: CorrSelect gives the kernel's correlations.
+    bf16 = dtype == "bfloat16"
+    want = corr_select_pallas(jnp.asarray(fvec, jnp.bfloat16 if bf16 else jnp.float32), jnp.asarray(targets),
+                              jnp.asarray(idx, jnp.int32), None, 256, True, jnp.bfloat16 if bf16 else None)
+    got = t_corr.CorrSelect.apply(torch.from_numpy(fvec).to(torch.bfloat16 if bf16 else torch.float32),
+                                  torch.from_numpy(targets), torch.from_numpy(idx), torch.bfloat16 if bf16 else None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=BF16_ATOL if bf16 else FP32_ATOL)
     # Each gradient has its own tensor's dtype: the cast sits inside.
     assert got_t.dtype == torch.float32 and want_t.dtype == jnp.float32
     assert got_f.dtype == (torch.bfloat16 if dtype == "bfloat16" else torch.float32)

@@ -19,8 +19,8 @@ pytestmark = pytest.mark.cuda
 KNN_RTOL, KNN_ATOL = 1e-5, 1e-6  # both compute d^2 directly in fp32
 CORR_ATOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}  # fp32 sums, other order
 # Backward: fp32 sums of up to a few dozen products of N(0,1) values in
-# another order (d_fvec by atomics, in an order that varies); a bf16 result
-# is also rounded to bf16 once on each side, at magnitudes up to ~16.
+# another order than the plain version's; a bf16 result is also rounded to
+# bf16 once on each side, at magnitudes up to ~16.
 BWD_ATOL = {torch.float32: 1e-4, torch.bfloat16: 7e-2}
 
 
@@ -112,21 +112,29 @@ def test_knn_kernel_rejects_what_it_cannot_take(gen, wrapper):
         fn(x[:, ::2], x, 4)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype,targets_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32),  # the tracker's call: fp32 targets rounded in the kernel
+])
 @pytest.mark.parametrize("c", [8, 40, 128, 256])
-def test_corr_kernel_matches_plain(gen, dtype, c):
-    b, p, n, k = 2, 900, 33, 16
+@pytest.mark.parametrize("k", [1, 8, 16, 20, 32])
+def test_corr_kernel_matches_plain(gen, dtype, targets_dtype, c, k):
+    b, p, n = 2, 900, 33
     fvec = torch.randn(b, p, c, generator=gen, device="cuda").to(dtype)
-    targets = torch.randn(b, n, c, generator=gen, device="cuda").to(dtype)
+    targets = torch.randn(b, n, c, generator=gen, device="cuda").to(targets_dtype)
     idx = torch.randint(0, p, (b, n, k), generator=gen, device="cuda")
-    idx[:, :, 3] = -1  # padding
-    idx[:, :, 5] = p  # out of range
+    idx[:, 0::3, 0] = -1  # padding
+    idx[:, 1::3, k - 1] = p  # out of range
     before = t_corr.corr_select_cuda.launches
     got = t_corr.corr_select(fvec, targets, idx)
     assert t_corr.corr_select_cuda.launches == before + 1
     want = t_corr.corr_select_plain(fvec, targets, idx)
     torch.testing.assert_close(got, want, rtol=0, atol=CORR_ATOL[dtype])
-    assert bool((got[:, :, 3] == 0).all()) and bool((got[:, :, 5] == 0).all())
+    assert bool((got[:, 0::3, 0] == 0).all()) and bool((got[:, 1::3, k - 1] == 0).all())
+    # A fixed order of sums: the same bits again, and fp32 targets give the
+    # bits of the same targets cast to the cloud's dtype first.
+    assert torch.equal(t_corr.corr_select_cuda(fvec, targets, idx), got)
+    assert torch.equal(t_corr.corr_select_cuda(fvec, targets.to(dtype), idx), got)
 
 
 def test_corr_kernel_rejects_what_it_cannot_take(gen):
@@ -142,18 +150,32 @@ def test_corr_kernel_rejects_what_it_cannot_take(gen):
     (torch.bfloat16, torch.float32),  # the bf16 tracker: bf16 cloud, fp32 track features
     (torch.float32, torch.float32),  # the fp32 tracker
 ])
-@pytest.mark.parametrize("b,p,n,k,c", [
-    (12, 16384, 256, 16, 128), (12, 4096, 256, 16, 128), (12, 1024, 256, 16, 128), (12, 256, 256, 16, 128),
-    (2, 900, 33, 16, 32), (2, 50, 7, 5, 8), (1, 300, 9, 20, 256),
+@pytest.mark.parametrize("b,p,n,k,c,pattern,rows", [
+    # the path's four levels; at level 3 every tile is contended
+    (12, 16384, 256, 16, 128, "random", None), (12, 4096, 256, 16, 128, "random", None),
+    (12, 1024, 256, 16, 128, "random", None), (12, 256, 256, 16, 128, "random", None),
+    (2, 900, 33, 16, 32, "random", None), (2, 50, 7, 5, 8, "random", None), (1, 300, 9, 20, 256, "random", None),
+    (2, 700, 50, 16, 40, "random", None),
+    (3, 1000, 700, 16, 128, "one_row", None),  # one long segment, several rounds of the index scan
+    (2, 1001, 33, 16, 40, "random", 64),  # P not a multiple of the tile rows
+    (2, 100, 33, 16, 128, "random", 256),  # P smaller than one tile
+    (2, 50, 0, 16, 8, "empty", None), (2, 50, 7, 0, 8, "empty", None),
 ])
-def test_corr_backward_kernel_matches_plain(gen, fvec_dtype, targets_dtype, b, p, n, k, c):
+def test_corr_backward_kernel_matches_plain(gen, monkeypatch, fvec_dtype, targets_dtype, b, p, n, k, c, pattern, rows):
+    if rows is not None:  # a tile plan other than the wrapper's own
+        monkeypatch.setattr(t_corr, "corr_backward_plan",
+                            lambda b_, p_, c_, sms: (rows, -(-p_ // rows), t_corr.corr_backward_copies(rows, c_)))
     fvec = torch.randn(b, p, c, generator=gen, device="cuda").to(fvec_dtype)
     targets = torch.randn(b, n, c, generator=gen, device="cuda").to(targets_dtype)
     idx = torch.randint(0, p, (b, n, k), generator=gen, device="cuda")
-    idx[:, :, 1] = -1  # padding
-    idx[:, :, 2] = p  # out of range
-    idx[:, :, 3] = idx[:, :, 4]  # a row hit twice by one query
     g = torch.randn(b, n, k, generator=gen, device="cuda")
+    if pattern == "random":
+        idx[:, :, 1] = -1  # padding
+        idx[:, :, 2] = p  # out of range
+        idx[:, :, 3] = idx[:, :, 4]  # a row hit twice by one query
+    elif pattern == "one_row":  # every query names row p // 2 at every rank
+        idx[:] = p // 2
+        g /= (n * k) ** 0.5  # sums of order 1, as at the other shapes
     before = t_corr.corr_select_backward_cuda.launches
     d_fvec, d_targets = t_corr.corr_select_backward(fvec, targets, idx, g)
     torch.cuda.synchronize()
@@ -163,11 +185,17 @@ def test_corr_backward_kernel_matches_plain(gen, fvec_dtype, targets_dtype, b, p
     assert d_fvec.shape == fvec.shape and d_targets.shape == targets.shape
     torch.testing.assert_close(d_fvec.float(), want_fvec.float(), rtol=0, atol=BWD_ATOL[fvec_dtype])
     torch.testing.assert_close(d_targets.float(), want_targets.float(), rtol=0, atol=BWD_ATOL[targets_dtype])
-    # The padding and out-of-range neighbours gave nothing: the same call
-    # with their g zeroed has the same d_targets, bit for bit.
-    g2 = g.clone()
-    g2[:, :, 1:3] = 0
-    torch.testing.assert_close(t_corr.corr_select_backward(fvec, targets, idx, g2)[1], d_targets, rtol=0, atol=0)
+    # Both gradients are summed in a fixed order: the same bits again.
+    again_fvec, again_targets = t_corr.corr_select_backward(fvec, targets, idx, g)
+    assert torch.equal(again_fvec, d_fvec) and torch.equal(again_targets, d_targets)
+    if pattern == "random":
+        # The padding and out-of-range neighbours gave nothing: the same call
+        # with their g zeroed has the same d_targets, bit for bit.
+        g2 = g.clone()
+        g2[:, :, 1:3] = 0
+        torch.testing.assert_close(t_corr.corr_select_backward(fvec, targets, idx, g2)[1], d_targets, rtol=0, atol=0)
+    if pattern == "empty":
+        assert not d_fvec.any() and not d_targets.any()
 
 
 def test_corr_select_autograd_on_the_card(gen):
