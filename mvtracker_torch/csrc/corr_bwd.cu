@@ -49,10 +49,8 @@
 // - It writes its R rows once, coalesced, in fvec's type; rows no index names
 //   come out as zeros from the same write.
 // The other way of finding a tile's contributions, a first pass that buckets
-// the (n, k) by tile (a count, a scan and a scatter with integer atomics), is
-// kept behind `buckets` = 1 for `scripts/profile_torch_corr.py`, which times
-// both; the order within a bucket, and with it d_fvec's last bits, then vary
-// from run to run.
+// the (n, k) by tile (a count, a scan and a scatter with integer atomics),
+// measured slower at the three small levels and is not kept (`PERF.md`).
 //
 // d_targets is a gather, the forward's layout: a warp per (b, n), the K
 // indices and gradients loaded once, a lane per neighbour, and handed round
@@ -60,7 +58,7 @@
 // all its neighbours' row loads before it uses them, and the 32 / L groups'
 // fp32 partial sums are combined with shuffles in a fixed order.
 //
-// One C call launches both (and the bucket pass when asked).
+// One C call launches both.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,10 +74,6 @@ constexpr int kTileWarps = kThreads / 32;
 constexpr int kList = 1024;
 constexpr int kPerThread = kList / kThreads;
 constexpr int kInFlight = 4;         // contributions whose loads are in flight together
-// Dynamic shared memory a tile may take: 196 KB, beside the 8 KB of lists,
-// within the 227 KB a block can have. The wrapper's plan takes less
-// (`ops/corr.py`).
-constexpr int kMaxTileBytes = 196 * 1024;
 constexpr int kGatherWarps = 8;      // (b, n) rows per d_targets block
 constexpr int kChunk = 16;           // neighbours whose loads are in flight together
 
@@ -122,13 +116,11 @@ __device__ __forceinline__ void store_row4(__nv_bfloat16* p, float4 v) {
 }
 
 // d_fvec, one tile of `rows` rows of one b per block.
-template <typename TF, bool kBuckets>
+template <typename TF>
 __global__ void __launch_bounds__(kThreads)
 corr_bwd_tile_kernel(const float* __restrict__ targets, const int64_t* __restrict__ idx,
-                     const float* __restrict__ g, TF* __restrict__ d_fvec,
-                     const int* __restrict__ bucket_count, const int* __restrict__ bucket_start,
-                     const int* __restrict__ bucket_list, int n, int p, int k, int c, int rows,
-                     int tiles, int copies) {
+                     const float* __restrict__ g, TF* __restrict__ d_fvec, int n, int p, int k,
+                     int c, int rows, int tiles, int copies) {
   extern __shared__ float4 tile[];  // [copies][rows][c / 4] fp32
   __shared__ int list_e[kList];  // listed entries n * k + k' within b, in scan order
   __shared__ int list_r[kList];  // their rows within the tile
@@ -150,46 +142,34 @@ corr_bwd_tile_kernel(const float* __restrict__ targets, const int64_t* __restric
   const float4* tb = reinterpret_cast<const float4*>(targets + (size_t)b * n * c);
 
   for (int i = tid; i < copies * rows * nc4; i += kThreads) tile[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // Cells zeroed by one warp are added to, or summed at the end, by another,
+  // also when no round below runs.
+  __syncthreads();
 
-  int rounds_end = total;  // entries (scan) or bucket positions (buckets) to walk
-  int start = 0;
-  if constexpr (kBuckets) {
-    rounds_end = bucket_count[blockIdx.x];
-    start = bucket_start[blockIdx.x];
-  }
-  for (int e0 = 0; e0 < rounds_end; e0 += kList) {
+  for (int e0 = 0; e0 < total; e0 += kList) {
+    // Entries e0 + tid * kPerThread + j, in order; keep those in the tile.
+    int local[kPerThread];
+    int hits = 0;
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j) {
+      const int e = e0 + tid * kPerThread + j;
+      local[j] = -1;
+      if (e < total) {
+        const int64_t r = ib[e] - row0;
+        if (r >= 0 && r < nrows) {
+          local[j] = static_cast<int>(r);
+          ++hits;
+        }
+      }
+    }
     int listed;
-    if constexpr (kBuckets) {
-      listed = min(kList, rounds_end - e0);
-      for (int q = tid; q < listed; q += kThreads) {
-        const int e = bucket_list[(size_t)b * total + start + e0 + q];
-        list_e[q] = e;
-        list_r[q] = static_cast<int>(ib[e]) - row0;
-      }
-    } else {
-      // Entries e0 + tid * kPerThread + j, in order; keep those in the tile.
-      int local[kPerThread];
-      int hits = 0;
+    int pos = block_exclusive_scan(hits, scan_scratch, &listed);
 #pragma unroll
-      for (int j = 0; j < kPerThread; ++j) {
-        const int e = e0 + tid * kPerThread + j;
-        local[j] = -1;
-        if (e < total) {
-          const int64_t r = ib[e] - row0;
-          if (r >= 0 && r < nrows) {
-            local[j] = static_cast<int>(r);
-            ++hits;
-          }
-        }
-      }
-      int pos = block_exclusive_scan(hits, scan_scratch, &listed);
-#pragma unroll
-      for (int j = 0; j < kPerThread; ++j) {
-        if (local[j] >= 0) {
-          list_e[pos] = e0 + tid * kPerThread + j;
-          list_r[pos] = local[j];
-          ++pos;
-        }
+    for (int j = 0; j < kPerThread; ++j) {
+      if (local[j] >= 0) {
+        list_e[pos] = e0 + tid * kPerThread + j;
+        list_r[pos] = local[j];
+        ++pos;
       }
     }
     __syncthreads();
@@ -248,47 +228,6 @@ corr_bwd_tile_kernel(const float* __restrict__ targets, const int64_t* __restric
     }
     store_row4(out + (size_t)i * 4, sum);
   }
-}
-
-// Bucket pass 1: contributions per (b, tile).
-__global__ void bucket_count_kernel(const int64_t* __restrict__ idx, int* __restrict__ count,
-                                    int b, int n, int p, int k, int rows, int tiles) {
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (int64_t)b * n * k) return;
-  const int64_t j = idx[e];
-  if (j < 0 || j >= p) return;
-  atomicAdd(&count[(e / ((int64_t)n * k)) * tiles + j / rows], 1);
-}
-
-// Bucket pass 2: each b's bucket starts, an exclusive scan over its tiles.
-__global__ void __launch_bounds__(kThreads)
-bucket_scan_kernel(const int* __restrict__ count, int* __restrict__ start, int tiles) {
-  __shared__ int scratch[kTileWarps + 1];
-  const int* cb = count + (size_t)blockIdx.x * tiles;
-  int* sb = start + (size_t)blockIdx.x * tiles;
-  int carry = 0;
-  for (int t0 = 0; t0 < tiles; t0 += kThreads) {
-    const int t = t0 + threadIdx.x;
-    int total;
-    const int off = block_exclusive_scan(t < tiles ? cb[t] : 0, scratch, &total);
-    if (t < tiles) sb[t] = carry + off;
-    carry += total;
-  }
-}
-
-// Bucket pass 3: each contribution's entry number into its bucket.
-__global__ void bucket_scatter_kernel(const int64_t* __restrict__ idx, const int* __restrict__ start,
-                                      int* __restrict__ fill, int* __restrict__ list, int b, int n,
-                                      int p, int k, int rows, int tiles) {
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t total = (int64_t)n * k;
-  if (e >= (int64_t)b * total) return;
-  const int64_t j = idx[e];
-  if (j < 0 || j >= p) return;
-  const int64_t bi = e / total;
-  const int64_t bucket = bi * tiles + j / rows;
-  const int pos = start[bucket] + atomicAdd(&fill[bucket], 1);
-  list[bi * total + pos] = static_cast<int>(e - bi * total);
 }
 
 // d_targets: a warp per (b, n); L lanes per row, 32 / L groups of neighbours.
@@ -418,49 +357,29 @@ cudaError_t gather(const void* fvec, const int64_t* idx, const float* g, float* 
   return launch_gather<TF, 32>(fvec, idx, g, d_targets, b, n, p, k, c, s);
 }
 
-template <typename TF, bool kBuckets>
+template <typename TF>
 cudaError_t launch_tiles(const float* targets, const int64_t* idx, const float* g, void* d_fvec,
-                         const int* count, const int* start, const int* list, int b, int n, int p,
-                         int k, int c, int rows, int tiles, int copies, cudaStream_t s) {
-  auto kernel = corr_bwd_tile_kernel<TF, kBuckets>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxTileBytes);
-  if (attr != cudaSuccess) return attr;
+                         int b, int n, int p, int k, int c, int rows, int tiles, int copies,
+                         cudaStream_t s) {
+  auto kernel = corr_bwd_tile_kernel<TF>;
+  // The tile's size is the wrapper's plan; past the default 48 KB a block
+  // must be allowed it, and the card refuses what it cannot hold.
   const size_t smem = (size_t)copies * rows * c * sizeof(float);
-  kernel<<<b * tiles, kThreads, smem, s>>>(targets, idx, g, static_cast<TF*>(d_fvec), count, start,
-                                          list, n, p, k, c, rows, tiles, copies);
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (attr != cudaSuccess) return attr;
+  kernel<<<b * tiles, kThreads, smem, s>>>(targets, idx, g, static_cast<TF*>(d_fvec), n, p, k, c,
+                                          rows, tiles, copies);
   return cudaGetLastError();
 }
 
 template <typename TF>
 cudaError_t backward(const void* fvec, const float* targets, const int64_t* idx, const float* g,
-                     float* d_targets, void* d_fvec, int* scratch, int b, int n, int p, int k,
-                     int c, int rows, int tiles, int copies, int buckets, cudaStream_t s) {
+                     float* d_targets, void* d_fvec, int b, int n, int p, int k, int c, int rows,
+                     int tiles, int copies, cudaStream_t s) {
   cudaError_t err = cudaSuccess;
   if (b > 0 && tiles > 0) {
-    if (buckets) {
-      // scratch: count and fill [b * tiles] (zeroed here), start [b * tiles], list [b * n * k].
-      const size_t nb = (size_t)b * tiles;
-      int* count = scratch;
-      int* fill = scratch + nb;
-      int* start = scratch + 2 * nb;
-      int* list = scratch + 3 * nb;
-      err = cudaMemsetAsync(scratch, 0, 2 * nb * sizeof(int), s);
-      if (err != cudaSuccess) return err;
-      const int64_t entries = (int64_t)b * n * k;
-      if (entries > 0) {
-        const int blocks = static_cast<int>((entries + kThreads - 1) / kThreads);
-        bucket_count_kernel<<<blocks, kThreads, 0, s>>>(idx, count, b, n, p, k, rows, tiles);
-        bucket_scan_kernel<<<b, kThreads, 0, s>>>(count, start, tiles);
-        bucket_scatter_kernel<<<blocks, kThreads, 0, s>>>(idx, start, fill, list, b, n, p, k, rows, tiles);
-        if ((err = cudaGetLastError()) != cudaSuccess) return err;
-      }
-      err = launch_tiles<TF, true>(targets, idx, g, d_fvec, count, start, list, b, n, p, k, c, rows,
-                                   tiles, copies, s);
-    } else {
-      err = launch_tiles<TF, false>(targets, idx, g, d_fvec, nullptr, nullptr, nullptr, b, n, p, k, c,
-                                    rows, tiles, copies, s);
-    }
+    err = launch_tiles<TF>(targets, idx, g, d_fvec, b, n, p, k, c, rows, tiles, copies, s);
     if (err != cudaSuccess) return err;
   }
   if (b > 0 && n > 0) err = gather<TF>(fvec, idx, g, d_targets, b, n, p, k, c, s);
@@ -471,25 +390,23 @@ cudaError_t backward(const void* fvec, const float* targets, const int64_t* idx,
 
 // fvec_dtype: 0 = float32, 1 = bfloat16. c must be a multiple of 16 bytes'
 // worth of fvec elements, fvec and targets 16-byte aligned (checked by the
-// Python wrapper). The tile plan: `tiles` tiles of `rows` rows cover P, each
-// held in `copies` (1, 2, 4 or 8) fp32 copies that fit kMaxTileBytes
-// together. buckets = 0 scans the indices per
-// tile (the path), 1 buckets them first and needs `scratch` of
-// 3 * b * tiles + b * n * k ints.
+// Python wrapper). The tile plan (`ops/corr.py::corr_backward_plan`, which
+// also sets the tile's size limit): `tiles` tiles of `rows` rows cover P,
+// each held in `copies` (1, 2, 4 or 8) fp32 copies in shared memory.
 extern "C" int corr_backward(const void* fvec, const float* targets, const int64_t* idx,
-                             const float* g, float* d_targets, void* d_fvec, int* scratch, int b,
-                             int n, int p, int k, int c, int rows, int tiles, int copies,
-                             int fvec_dtype, int buckets, void* stream) {
+                             const float* g, float* d_targets, void* d_fvec, int b, int n, int p,
+                             int k, int c, int rows, int tiles, int copies, int fvec_dtype,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows < 1 || (int64_t)rows * tiles < p || (copies != 1 && copies != 2 && copies != 4 && copies != 8) ||
-      (int64_t)copies * rows * c * 4 > kMaxTileBytes || (buckets && scratch == nullptr))
+      (int64_t)copies * rows * c * 4 > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   if (fvec_dtype == 0)
-    return backward<float>(fvec, targets, idx, g, d_targets, d_fvec, scratch, b, n, p, k, c, rows,
-                           tiles, copies, buckets, s);
+    return backward<float>(fvec, targets, idx, g, d_targets, d_fvec, b, n, p, k, c, rows, tiles,
+                           copies, s);
   if (fvec_dtype == 1)
-    return backward<__nv_bfloat16>(fvec, targets, idx, g, d_targets, d_fvec, scratch, b, n, p, k, c,
-                                   rows, tiles, copies, buckets, s);
+    return backward<__nv_bfloat16>(fvec, targets, idx, g, d_targets, d_fvec, b, n, p, k, c, rows,
+                                   tiles, copies, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -35,7 +35,7 @@ ENTRIES = {
     "knn_tiled": {"knn_tiled_forward": [_P] * 6 + [_I] * 6 + [_P], "knn_tiled_blocks_per_sm": [_I]},
     "knn_exact": {"knn_exact_forward": [_P] * 4 + [_I] * 4 + [_P]},
     "corr": {"corr_forward": [_P] * 4 + [_I] * 7 + [_P]},
-    "corr_bwd": {"corr_backward": [_P] * 7 + [_I] * 10 + [_P]},
+    "corr_bwd": {"corr_backward": [_P] * 6 + [_I] * 9 + [_P]},
 }
 SOURCES = tuple(ENTRIES)
 

@@ -148,7 +148,8 @@ def corr_select_backward_plain(fvec: torch.Tensor, targets: torch.Tensor, idx: t
 
 
 # Shared memory a block of the backward gives its tile of d_fvec rows (fp32,
-# all C channels, all copies); `csrc/corr_bwd.cu` takes up to 196 KB.
+# all C channels, all copies): the one limit on a tile; `csrc/corr_bwd.cu`
+# allows each launch the size its plan asks for.
 CORR_BWD_TILE_BYTES = 64 * 1024
 # Tile blocks wanted per multiprocessor where the cloud is small: a block's
 # time is a chain of memory latencies, so several share each multiprocessor.
@@ -233,7 +234,7 @@ def corr_select_backward_cuda(fvec: torch.Tensor, targets: torch.Tensor, idx: to
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.corr_backward(
             fvec.data_ptr(), targets.data_ptr(), idx.data_ptr(), g.data_ptr(), d_targets.data_ptr(),
-            d_fvec.data_ptr(), None, b, n, p, k, c, rows, tiles, copies, _DTYPE_CODES[fvec.dtype], 0, stream,
+            d_fvec.data_ptr(), b, n, p, k, c, rows, tiles, copies, _DTYPE_CODES[fvec.dtype], stream,
         )
     _cuda.check(lib, status, "corr_select_backward_cuda")
     corr_select_backward_cuda.launches += 1

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's two correlation kernels stand on the card.
 
-    python3 scripts/profile_torch_corr.py [--parent DIR]
+    python3 scripts/profile_torch_corr.py [--parent DIR] [--buckets DIR]
 
 1. Compiles `mvtracker_torch/csrc/corr.cu` (K2, the forward) and
    `csrc/corr_bwd.cu` (K3, the backward) with `nvcc -Xptxas -v` and prints,
@@ -11,12 +11,16 @@
    features), as device time of launches replayed from a CUDA graph:
    - K2 as the path calls it (fp32 targets rounded in the kernel), and on
      targets cast to bf16 first, with that cast;
-   - K3 with the wrapper's tile plan, finding each tile's contributions by
-     scanning all indices (the path) and by bucketing them first, with one
-     copy of the tile where the plan keeps several, both at
-     other tile sizes, and with no index in the cloud (what the tiles'
-     zeroing, index scan and dense write cost without a contribution);
+   - K3 with the wrapper's tile plan, with one copy of the tile where the
+     plan keeps several, at other tile sizes, and with no index in the cloud
+     (what the tiles' zeroing, index scan and dense write cost without a
+     contribution);
    - the path's calls under `torch.profiler`, device time per kernel;
+   - with `--buckets DIR`, the other way of finding a tile's contributions,
+     a first pass that buckets them by tile, built from `DIR/corr_bwd.cu`:
+     a version of this K3 whose C entry takes two more arguments, an int
+     scratch of 3 * B * tiles + B * N * K after `d_fvec` and a flag after
+     the dtype code that selects the bucket pass;
    - with `--parent DIR`, the designs they replaced, built from
      `DIR/corr.cu` and `DIR/corr_bwd.cu` and called as their wrappers called
      them (K2 after a separate cast of the targets; K3 into a zeroed fp32
@@ -74,18 +78,21 @@ def resources(_cuda) -> None:
                       f"{spill.group(1) if spill else '?'} bytes spilled")
 
 
-def build_parent(_cuda, parent: str, tmp: str):
-    """The previous designs' libraries, built from `parent`, with their C
-    signatures."""
-    P, I = ctypes.c_void_p, ctypes.c_int
+P, I = ctypes.c_void_p, ctypes.c_int
+PARENT_ENTRIES = (("corr", "corr_forward", [P] * 4 + [I] * 6 + [P]),
+                  ("corr_bwd", "corr_backward", [P] * 6 + [I] * 6 + [P]))
+BUCKETS_ENTRIES = (("corr_bwd", "corr_backward", [P] * 7 + [I] * 10 + [P]),)
+
+
+def build_from(_cuda, src: str, entries, tmp: str, tag: str):
+    """C entries of other versions of the sources, built from `src`, with
+    their signatures."""
     libs = {}
-    for name, entry, args in (("corr", "corr_forward", [P] * 4 + [I] * 6 + [P]),
-                              ("corr_bwd", "corr_backward", [P] * 6 + [I] * 6 + [P])):
-        so = os.path.join(tmp, f"lib{name}_parent.so")
-        subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", so, os.path.join(parent, f"{name}.cu")],
+    for name, entry, args in entries:
+        so = os.path.join(tmp, f"lib{name}_{tag}.so")
+        subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", so, os.path.join(src, f"{name}.cu")],
                        check=True, capture_output=True)
-        lib = ctypes.CDLL(so)
-        fn = getattr(lib, entry)
+        fn = getattr(ctypes.CDLL(so), entry)
         fn.restype, fn.argtypes = ctypes.c_int, args
         libs[name] = fn
     return libs
@@ -96,6 +103,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", help="directory with the previous corr.cu and corr_bwd.cu to time beside")
+    parser.add_argument("--buckets", help="directory with a corr_bwd.cu that can bucket the contributions first")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_corr: needs an NVIDIA GPU", file=sys.stderr)
@@ -108,7 +116,8 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip())
     resources(_cuda)
     tmp = tempfile.mkdtemp()
-    parent = build_parent(_cuda, args.parent, tmp) if args.parent else None
+    parent = build_from(_cuda, args.parent, PARENT_ENTRIES, tmp, "parent") if args.parent else None
+    bucketing = build_from(_cuda, args.buckets, BUCKETS_ENTRIES, tmp, "buckets")["corr_bwd"] if args.buckets else None
     lib = _cuda.load("corr_bwd")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -153,32 +162,36 @@ def main() -> int:
         # K3
         rows, tiles, copies = corr_ops.corr_backward_plan(B, p, C, sms)
 
-        def k3(rows, tiles, buckets, copies=None):
+        def k3(rows, tiles, copies=None, buckets=False):
             copies = copies or corr_ops.corr_backward_copies(rows, C)
             d_fvec = torch.empty_like(fvec)
             d_targets = torch.empty_like(targets)
-            scratch = torch.empty(3 * B * tiles + B * N * K, dtype=torch.int32, device=dev) if buckets else None
-            status = lib.corr_backward(
-                fvec.data_ptr(), targets.data_ptr(), idx.data_ptr(), g.data_ptr(), d_targets.data_ptr(),
-                d_fvec.data_ptr(), scratch.data_ptr() if buckets else None, B, N, p, K, C, rows, tiles, copies, 1, buckets,
-                torch.cuda.current_stream().cuda_stream)
+            stream = torch.cuda.current_stream().cuda_stream
+            head = (fvec.data_ptr(), targets.data_ptr(), idx.data_ptr(), g.data_ptr(), d_targets.data_ptr(),
+                    d_fvec.data_ptr())
+            if buckets:
+                scratch = torch.empty(3 * B * tiles + B * N * K, dtype=torch.int32, device=dev)
+                status = bucketing(*head, scratch.data_ptr(), B, N, p, K, C, rows, tiles, copies, 1, 1, stream)
+            else:
+                status = lib.corr_backward(*head, B, N, p, K, C, rows, tiles, copies, 1, stream)
             _cuda.check(lib, status, "corr_backward")
             return d_fvec, d_targets
 
         want_fvec, want_targets = corr_ops.corr_select_backward_plain(fvec, targets, idx, g)
-        for buckets in (0, 1):
-            d_fvec, d_targets = k3(rows, tiles, buckets)
+        variants = [(False, "K3 scan")] + ([(True, "K3 buckets")] if bucketing else [])
+        for buckets, name in variants:
+            d_fvec, d_targets = k3(rows, tiles, buckets=buckets)
             torch.cuda.synchronize()
             gap = (d_fvec.float() - want_fvec.float()).abs()
             if not bool((gap <= 2.0**-7 * want_fvec.float().abs() + 1e-4).all()) or \
                     float((d_targets - want_targets).abs().max()) > 1e-4:
-                raise AssertionError(f"level {lvl}: K3 with buckets={buckets} disagrees with the plain version")
-        for buckets, name in ((0, "K3 scan"), (1, "K3 buckets")):
-            ms = device_ms(lambda: k3(rows, tiles, buckets), reps=50)
+                raise AssertionError(f"level {lvl}: {name} disagrees with the plain version")
+        for buckets, name in variants:
+            ms = device_ms(lambda: k3(rows, tiles, buckets=buckets), reps=50)
             add(name, ms)
             row.append(f"{name} {ms:.5f}")
         if copies > 1:
-            ms = device_ms(lambda: k3(rows, tiles, 0, 1), reps=50)
+            ms = device_ms(lambda: k3(rows, tiles, 1), reps=50)
             row.append(f"K3 scan with one copy {ms:.5f}")
         add("K3 scan with one copy", ms if copies > 1 else sums_level["K3 scan"])
         if parent:
@@ -203,26 +216,28 @@ def main() -> int:
         sweep = []
         for r in SWEEP_ROWS[p]:
             t = -(-p // r)
-            sweep.append(f"{r} rows ({B * t} blocks): scan {device_ms(lambda: k3(r, t, 0), reps=50):.5f}, "
-                         f"buckets {device_ms(lambda: k3(r, t, 1), reps=50):.5f}")
+            sweep.append(f"{r} rows ({B * t} blocks): scan {device_ms(lambda: k3(r, t), reps=50):.5f}"
+                         + (f", buckets {device_ms(lambda: k3(r, t, buckets=True), reps=50):.5f}" if bucketing else ""))
         print(f"level {lvl} K3 by tile size, ms: " + "; ".join(sweep), flush=True)
         full_idx = idx
         idx = torch.full_like(full_idx, -1)
-        print(f"level {lvl} K3 with no index in the cloud, ms: scan {device_ms(lambda: k3(rows, tiles, 0), reps=50):.5f}",
+        print(f"level {lvl} K3 with no index in the cloud, ms: scan {device_ms(lambda: k3(rows, tiles), reps=50):.5f}",
               flush=True)
         idx = full_idx
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(20):
                 corr_ops.corr_select_cuda(fvec, targets, idx)
                 corr_ops.corr_select_backward_cuda(fvec, targets, idx, g)
-                k3(rows, tiles, 1)
+                if bucketing:
+                    k3(rows, tiles, buckets=True)
             torch.cuda.synchronize()
         per = []
         for ev in prof.key_averages():
             dev_us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
             if ev.count and dev_us:
                 per.append(f"{ev.key[:60]} {dev_us / ev.count / 1e3:.5f} ms x{ev.count}")
-        print(f"level {lvl} under the profiler (20 calls each of K2, K3 scan, K3 buckets), device ms per kernel: "
+        print(f"level {lvl} under the profiler (20 calls each of K2, K3{', K3 buckets' if bucketing else ''}), "
+              "device ms per kernel: "
               + "; ".join(per), flush=True)
     print("sums over the four levels, 12 launches each (K2 per forward, K3 per train step), ms: "
           + ", ".join(f"{key} {ms:.5f}" for key, ms in sums.items()))

@@ -101,7 +101,8 @@ def test_corr_backward_plan(b, p, c):
         covered[t * rows: min(p, (t + 1) * rows)] += 1
     assert (covered == 1).all()
     assert copies in (1, 2, 4, 8)
-    assert copies * rows * c * 4 <= t_corr.CORR_BWD_TILE_BYTES <= 196 * 1024  # the kernel's limit, within 227 KB
+    assert copies * rows * c * 4 <= t_corr.CORR_BWD_TILE_BYTES
+    assert t_corr.CORR_BWD_TILE_BYTES + 9 * 1024 <= 227 * 1024  # with the kernel's 8 KB of lists, in a block's 227 KB
     if c == 128 and p <= 16384:
         assert b * tiles >= H100_SMS
 

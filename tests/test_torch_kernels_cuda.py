@@ -158,11 +158,13 @@ def test_corr_kernel_rejects_what_it_cannot_take(gen):
     (2, 700, 50, 16, 40, "random", None),
     (3, 1000, 700, 16, 128, "one_row", None),  # one long segment, several rounds of the index scan
     (2, 1001, 33, 16, 40, "random", 64),  # P not a multiple of the tile rows
-    (2, 100, 33, 16, 128, "random", 256),  # P smaller than one tile
+    (2, 100, 33, 16, 128, "random", 128),  # P smaller than one tile
     (2, 50, 0, 16, 8, "empty", None), (2, 50, 7, 0, 8, "empty", None),
+    (12, 256, 0, 16, 128, "empty", None),  # no contribution; each tile's 8 copies span all 8 warps
 ])
 def test_corr_backward_kernel_matches_plain(gen, monkeypatch, fvec_dtype, targets_dtype, b, p, n, k, c, pattern, rows):
-    if rows is not None:  # a tile plan other than the wrapper's own
+    if rows is not None:  # a tile plan other than the wrapper's own, within its limit
+        assert rows * c * 4 <= t_corr.CORR_BWD_TILE_BYTES
         monkeypatch.setattr(t_corr, "corr_backward_plan",
                             lambda b_, p_, c_, sms: (rows, -(-p_ // rows), t_corr.corr_backward_copies(rows, c_)))
     fvec = torch.randn(b, p, c, generator=gen, device="cuda").to(fvec_dtype)
