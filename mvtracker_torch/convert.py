@@ -1,5 +1,12 @@
 """Weights for the port.
 
+- `load_flax_msgpack(path)`: read a params file that flax's
+  `serialization.msgpack_serialize` wrote (the release artifact,
+  `release/mvtracker_medium_synth.msgpack`) into nested dicts of numpy
+  arrays, with a msgpack decoder of its own: neither `msgpack` nor `flax`
+  is needed. bf16 leaves come back as fp32, widened exactly.
+- `load_release(path, model)`: that file into `model`, strictly: any leaf
+  missing, extra or of another shape raises and is named.
 - `params_from_flax(params)`: the JAX package's MVTracker params (nested
   dicts of numpy arrays, with or without the outer "params" key) -> a
   state dict for `mvtracker_torch.models.mvtracker.MVTracker`. The port's
@@ -19,9 +26,138 @@ Layouts: flax Conv (kh, kw, I, O) -> (O, I, kh, kw); flax Dense (I, O) ->
 
 from __future__ import annotations
 
+import struct
+
 import numpy as np
 import torch
 from torch import nn
+
+# ---------------------------------------------------------------------------
+# msgpack, as far as flax's params files use it
+# ---------------------------------------------------------------------------
+
+_EXT_NDARRAY = 1  # flax's ext code for an ndarray: packed (shape, dtype name, C-order bytes)
+_FIXED = {  # format byte -> (struct code of the big-endian value, its size)
+    0xCA: (">f", 4), 0xCB: (">d", 8),
+    0xCC: (">B", 1), 0xCD: (">H", 2), 0xCE: (">I", 4), 0xCF: (">Q", 8),
+    0xD0: (">b", 1), 0xD1: (">h", 2), 0xD2: (">i", 4), 0xD3: (">q", 8),
+}
+_LENGTH = {1: ">B", 2: ">H", 4: ">I"}
+
+
+class _Reader:
+    """msgpack decoder over one buffer. Strings decode to `str` (or stay
+    `bytes` with `raw=True`, as flax decodes an ndarray's header), binary
+    data is sliced from a memoryview without copying, and ext type 1 becomes
+    a numpy array."""
+
+    def __init__(self, data, raw: bool = False):
+        self.buf = memoryview(data)
+        self.pos = 0
+        self.raw = raw
+
+    def _take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.buf):
+            raise ValueError(f"msgpack: truncated data at byte {self.pos} (need {n} more)")
+        out = self.buf[self.pos : self.pos + n]
+        self.pos += n
+        return out
+
+    def _uint(self, size: int) -> int:
+        return struct.unpack(_LENGTH[size], self._take(size))[0]
+
+    def _str(self, n: int):
+        b = bytes(self._take(n))
+        return b if self.raw else b.decode("utf-8")
+
+    def _array(self, n: int) -> list:
+        return [self.read() for _ in range(n)]
+
+    def _map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            key = self.read()
+            out[key] = self.read()
+        return out
+
+    def _ext(self, n: int):
+        code = struct.unpack(">b", self._take(1))[0]
+        payload = self._take(n)
+        if code != _EXT_NDARRAY:
+            raise ValueError(
+                f"msgpack: ext type {code} (flax uses 2 for a complex scalar and 3 for a numpy scalar) "
+                "is not supported; a params file holds arrays only"
+            )
+        return _ndarray_from_ext(payload)
+
+    def read(self):
+        b = self._take(1)[0]
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if b <= 0x8F:
+            return self._map(b & 0x0F)
+        if b <= 0x9F:
+            return self._array(b & 0x0F)
+        if b <= 0xBF:
+            return self._str(b & 0x1F)
+        if b == 0xC0:
+            return None
+        if b in (0xC2, 0xC3):
+            return b == 0xC3
+        if b in _FIXED:
+            code, size = _FIXED[b]
+            return struct.unpack(code, self._take(size))[0]
+        if 0xC4 <= b <= 0xC6:  # bin 8/16/32
+            return self._take(self._uint(1 << (b - 0xC4)))
+        if 0xC7 <= b <= 0xC9:  # ext 8/16/32
+            return self._ext(self._uint(1 << (b - 0xC7)))
+        if 0xD4 <= b <= 0xD8:  # fixext 1..16
+            return self._ext(1 << (b - 0xD4))
+        if 0xD9 <= b <= 0xDB:  # str 8/16/32
+            return self._str(self._uint(1 << (b - 0xD9)))
+        if b in (0xDC, 0xDD):  # array 16/32
+            return self._array(self._uint(2 if b == 0xDC else 4))
+        if b in (0xDE, 0xDF):  # map 16/32
+            return self._map(self._uint(2 if b == 0xDE else 4))
+        raise ValueError(f"msgpack: unknown format byte 0x{b:02x} at byte {self.pos - 1}")
+
+
+def _ndarray_from_ext(payload: memoryview) -> np.ndarray:
+    """flax's ndarray ext payload -> a numpy array that owns its memory.
+    bfloat16 (not a numpy dtype) is read as uint16 and widened to fp32 by
+    a 16-bit shift, which is exact."""
+    reader = _Reader(payload, raw=True)
+    shape, dtype_name, buffer = reader.read()
+    if reader.pos != len(payload):
+        raise ValueError("msgpack: trailing bytes in an ndarray ext payload")
+    shape = tuple(shape)
+    if dtype_name == b"bfloat16":
+        bits = np.frombuffer(buffer, dtype=np.uint16).astype(np.uint32) << 16
+        return bits.view(np.float32).reshape(shape)
+    return np.frombuffer(buffer, dtype=np.dtype(dtype_name.decode())).reshape(shape).copy()
+
+
+def _reject_chunked(tree, path=""):
+    if isinstance(tree, dict):
+        if "__msgpack_chunked_array__" in tree:
+            raise ValueError(f"{path or 'the file'}: chunked arrays (leaves over 1 GiB) are not supported")
+        for key, value in tree.items():
+            _reject_chunked(value, f"{path}/{key}")
+
+
+def load_flax_msgpack(path: str) -> dict:
+    """A flax msgpack params file -> nested dicts of numpy arrays (bf16
+    leaves as fp32), the tree `flax.serialization.msgpack_restore` gives."""
+    with open(path, "rb") as f:
+        data = f.read()
+    reader = _Reader(data)
+    tree = reader.read()
+    if reader.pos != len(data):
+        raise ValueError(f"{path}: {len(data) - reader.pos} bytes after the msgpack object")
+    _reject_chunked(tree)
+    return tree
 
 
 def _conv(p, name):
@@ -105,8 +241,77 @@ def params_from_flax(params) -> dict[str, torch.Tensor]:
 
     sd.update(_norm(p["ffeats_norm"], "ffeats_norm"))
     sd.update(_dense(p["ffeats_updater"], "ffeats_updater.0"))
+    if "vis_hidden" in p:
+        sd.update(_dense(p["vis_hidden"], "vis_hidden"))
     sd.update(_dense(p["vis_predictor"], "vis_predictor.0"))
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+class _Recorder(dict):
+    """A params tree that records the path of every leaf read from it, so
+    that `load_release` can name the leaves `params_from_flax` left unread."""
+
+    def __init__(self, tree, seen, path=""):
+        super().__init__(tree)
+        self._seen, self._path = seen, path
+
+    def _wrap(self, key, value):
+        path = f"{self._path}/{key}" if self._path else str(key)
+        if isinstance(value, dict):
+            return _Recorder(value, self._seen, path)
+        self._seen.add(path)
+        return value
+
+    def __getitem__(self, key):
+        return self._wrap(key, super().__getitem__(key))
+
+    def get(self, key, default=None):
+        return self[key] if key in self else default
+
+    def items(self):
+        return [(k, self._wrap(k, v)) for k, v in super().items()]
+
+
+def _leaf_paths(tree, path=""):
+    for key, value in tree.items():
+        sub = f"{path}/{key}" if path else str(key)
+        if isinstance(value, dict):
+            yield from _leaf_paths(value, sub)
+        else:
+            yield sub
+
+
+def load_release(path: str, model: nn.Module) -> nn.Module:
+    """Load a flax msgpack params file into `model` strictly, with the
+    meaning of the JAX package's `Trainer.warm_start(strict=True)`: a leaf of
+    the file the model has no place for, a parameter the file does not
+    give, or a shape that differs raises ValueError naming them, so a model
+    built with other options than the file's never runs on half its
+    weights. Values are cast to the model's parameter dtype. Returns
+    `model`."""
+    tree = load_flax_msgpack(path)
+    seen: set = set()
+    try:
+        sd = params_from_flax(_Recorder(tree, seen))
+    except KeyError as e:
+        raise ValueError(f"{path}: the params tree lacks {e} that the model's layout needs") from None
+    want = model.state_dict()
+    unread = sorted(set(_leaf_paths(tree)) - seen)
+    missing = sorted(set(want) - set(sd))
+    extra = sorted(set(sd) - set(want))
+    wrong = sorted(
+        f"{k} {tuple(sd[k].shape)} vs the model's {tuple(want[k].shape)}"
+        for k in set(sd) & set(want)
+        if sd[k].shape != want[k].shape
+    )
+    if unread or missing or extra or wrong:
+        raise ValueError(
+            f"strict load of {path}: the model's options do not match the file; "
+            f"file leaves with no counterpart {unread + extra}, parameters the file lacks {missing}, "
+            f"shapes that differ {wrong}"
+        )
+    model.load_state_dict({k: v.to(want[k].dtype) for k, v in sd.items()}, strict=True)
+    return model
 
 
 def opt_state_from_optax(opt_state) -> dict:

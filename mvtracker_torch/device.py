@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -19,3 +21,19 @@ def resolve_device(device="cuda") -> torch.device:
             "pass device='cpu' to run the plain PyTorch path"
         )
     return device
+
+
+@contextlib.contextmanager
+def fp32_precision(exact: bool):
+    """Within the block, with `exact`, fp32 convolutions and matmuls on the
+    GPU round as fp32: TF32 off for cuDNN (on by default in PyTorch, which
+    puts the encoder's feature maps about 1e-3 off) and for matmuls. Without
+    `exact` the process's settings stay. They are restored on exit."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    if exact:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

@@ -54,8 +54,6 @@ from mvtracker_torch.utils import geometry as geo
 _NOT_PORTED = {
     "corr_knn_reuse": False,
     "corr_filter_invalid_depth": False,
-    "vis_geom_features": False,
-    "vis_head_hidden": 0,
     "global_match_init": False,
     "chain_velocity": 0.0,
     "normalize_scene_in_fwd_pass": False,
@@ -69,6 +67,9 @@ _NOT_PORTED = {
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 SMALL_LEVEL_POINTS = 1024  # levels at most this size share one kNN call
+# Clearance tolerances of the visibility head's z-test features (the JAX
+# module's `vis_geom_taus` default, the only value its checkpoints use).
+VIS_GEOM_TAUS = (0.05, 0.2, 1.0)
 
 
 def window_starts(num_frames: int, window_len: int) -> list[int]:
@@ -99,6 +100,8 @@ class MVTracker(nn.Module):
         corr_add_neighbor_offset: bool = True,
         corr_add_neighbor_xyz: bool = False,
         flow_embed_dim: int = 64,
+        vis_geom_features: bool = False,
+        vis_head_hidden: int = 0,
         compute_dtype: str = "float32",
         remat: bool = False,
         remat_encoder: bool = True,
@@ -124,6 +127,11 @@ class MVTracker(nn.Module):
         self.corr_add_neighbor_offset = corr_add_neighbor_offset
         self.corr_add_neighbor_xyz = corr_add_neighbor_xyz
         self.flow_embed_dim = flow_embed_dim
+        # Visibility head options (both off = the reference's single Linear
+        # on the track features): per-view depth z-test features of the
+        # final coords, and one exact-GELU hidden layer.
+        self.vis_geom_features = vis_geom_features
+        self.vis_head_hidden = vis_head_hidden
         self.dtype = _DTYPES[compute_dtype]
         # Recompute activations in the backward instead of keeping them: the
         # update transformer with `remat`, the encoder too with
@@ -152,7 +160,11 @@ class MVTracker(nn.Module):
         # Feature update head: LayerNorm (eps 1e-5) -> Linear -> exact GELU.
         self.ffeats_norm = LayerNorm(fmaps_dim, eps=1e-5, device=device)
         self.ffeats_updater = nn.Sequential(Linear(fmaps_dim, fmaps_dim, device=device), nn.GELU())
-        self.vis_predictor = nn.Sequential(Linear(fmaps_dim, 1, device=device))
+        vis_in = fmaps_dim + (2 * len(VIS_GEOM_TAUS) + 1 if vis_geom_features else 0)
+        if vis_head_hidden > 0:
+            self.vis_hidden = Linear(vis_in, vis_head_hidden, device=device)  # flax's name
+            vis_in = vis_head_hidden
+        self.vis_predictor = nn.Sequential(Linear(vis_in, 1, device=device))
 
     @property
     def device(self) -> torch.device:
@@ -269,9 +281,58 @@ class MVTracker(nn.Module):
             fcorrs.append(fc.reshape(s, n, -1))
         return torch.cat(fcorrs, dim=-1)
 
-    def forward_iteration(self, context_w, coords_init, vis_init, track_mask, active, feat_init, iters: int):
+    def _vis_geom_features(self, geom_w, coords):
+        """Per-view depth z-test features for the visibility head:
+        [S, N, 2 * len(taus) + 1].
+
+        geom_w: (depths [V, S, H, W] at full resolution, intrs [V, S, 3, 3],
+        extrs [V, S, 3, 4]) of the window's frames; coords [S, N, 3] world
+        points, already detached. Every view projects the points, samples
+        its depth bilinearly and scores the clearance c = depth - camera z
+        with tanh(c / tau) per tolerance; over the views that see a point
+        (inside the image, z > 1e-3, depth > 0) a max (-1 when none does)
+        and a mean (count clamped to 1) per tau, then the fraction of such
+        views mapped to [-1, 1].
+        """
+        depths_f, intrs, extrs = geom_w
+        v, s, h, w = depths_f.shape
+        n = coords.shape[1]
+        pix, z = geo.world_to_pixel_xy_and_camera_z(coords[None].expand(v, s, n, 3), intrs, extrs)
+        z = z[..., 0]
+        d = geo.bilinear_sample2d(
+            depths_f.reshape(v * s, h, w, 1), pix[..., 0].reshape(v * s, n), pix[..., 1].reshape(v * s, n)
+        ).reshape(v, s, n)
+        inb = (pix[..., 0] >= 0) & (pix[..., 0] <= w - 1) & (pix[..., 1] >= 0) & (pix[..., 1] <= h - 1) & (z > 1e-3)
+        valid = inb & (d > 0)  # a depth of 0 carries no surface evidence
+        clearance = d - z
+        cnt = valid.sum(dim=0).clamp_min(1)
+        feats = []
+        for tau in VIS_GEOM_TAUS:
+            sc = torch.tanh(clearance / tau)
+            feats.append(torch.where(valid, sc, torch.full_like(sc, -1.0)).amax(dim=0))
+            feats.append(torch.where(valid, sc, torch.zeros_like(sc)).sum(dim=0) / cnt)
+        feats.append(valid.float().mean(dim=0) * 2.0 - 1.0)
+        return torch.stack(feats, dim=-1)
+
+    def _vis_logits(self, ffeats, geom_w, coords):
+        """Visibility logits [S, N] from the track features, widened with the
+        z-test features and passed through the hidden layer when the model
+        has them."""
+        x = ffeats
+        if self.vis_geom_features:
+            gfeats = self._vis_geom_features(geom_w, coords.detach())
+            x = torch.cat([x, gfeats.to(x.dtype)], dim=-1)
+        if self.vis_head_hidden > 0:
+            x = F.gelu(self.vis_hidden(x), approximate="none")
+        return self.vis_predictor(x)[..., 0]
+
+    def forward_iteration(
+        self, context_w, coords_init, vis_init, track_mask, active, feat_init, iters: int, geom_w=None
+    ):
         """Iterative refinement within one window. Returns (list of coords
-        [S, N, 3] per iteration, vis logits [S, N]).
+        [S, N, 3] per iteration, vis logits [S, N]). `geom_w` is the window's
+        (full-resolution depths, intrs, extrs), needed with
+        `vis_geom_features`.
 
         As in the JAX module, `pos_embed` sees the undetached `coords_init`
         (so a chained window sends gradient to the previous one through it
@@ -301,7 +362,7 @@ class MVTracker(nn.Module):
             coords = coords + delta[..., :3]
             ffeats = ffeats + self.ffeats_updater(self.ffeats_norm(delta[..., 3:]))
             preds.append(coords)
-        vis_logits = self.vis_predictor(ffeats)[..., 0]
+        vis_logits = self._vis_logits(ffeats, geom_w, coords)
         return preds, vis_logits
 
     # ------------------------------------------------------------------
@@ -353,6 +414,9 @@ class MVTracker(nn.Module):
             frame_idx = torch.clamp(torch.arange(s, device=dev) + w_start, max=t - 1)
             active = query_t < w_start + s
             context_w = [(xyz.index_select(0, frame_idx), fvec.index_select(0, frame_idx)) for xyz, fvec in context]
+            geom_w = None
+            if self.vis_geom_features:
+                geom_w = tuple(a.index_select(1, frame_idx) for a in (depths, intrs, extrs))
 
             coords_init = query_xyz[None].expand(s, n, 3)
             vis_init = torch.full((s, n), 10.0, device=dev)
@@ -371,7 +435,7 @@ class MVTracker(nn.Module):
             track_mask = (frame_idx[:, None] >= cutoff[None, :]).float()
 
             preds, vis_logits = self.forward_iteration(
-                context_w, coords_init, vis_init, track_mask, active, feat_init, iters
+                context_w, coords_init, vis_init, track_mask, active, feat_init, iters, geom_w
             )
             all_coords.append(preds[-1])
             all_preds.append(preds)

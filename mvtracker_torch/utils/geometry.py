@@ -130,6 +130,25 @@ def reprojection_roundtrip_dev(world_xyz: torch.Tensor, intrs: torch.Tensor, ext
     return torch.where(ok, dev, torch.zeros_like(dev)).max()
 
 
+def get_points_on_a_grid(size: int, extent: tuple, center: tuple | None = None, device=None) -> torch.Tensor:
+    """Uniform grid of size * size pixel positions over an image of `extent`
+    (H, W) with a margin of W/64, as reference `model_utils.py:361-417`:
+    [1, size^2, 2] in (x, y) order. size 1 gives the image centre."""
+    if size == 1:
+        return torch.tensor([[[extent[1] / 2, extent[0] / 2]]], dtype=torch.float32, device=device)
+    if center is None:
+        center = (extent[0] / 2, extent[1] / 2)
+    margin = extent[1] / 64
+    range_y = (margin - extent[0] / 2 + center[0], extent[0] / 2 + center[0] - margin)
+    range_x = (margin - extent[1] / 2 + center[1], extent[1] / 2 + center[1] - margin)
+    grid_y, grid_x = torch.meshgrid(
+        torch.linspace(*range_y, size, device=device),
+        torch.linspace(*range_x, size, device=device),
+        indexing="ij",
+    )
+    return torch.stack([grid_x, grid_y], dim=-1).reshape(1, -1, 2)
+
+
 def bilinear_sample2d(im: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Bilinearly sample channels-last maps im [B, H, W, C] at continuous
     pixel locations x, y [B, N] -> [B, N, C]. The four corner indices are

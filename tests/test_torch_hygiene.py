@@ -11,7 +11,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mvtracker_tpu")
+# msgpack and sklearn are absent on the GPU host: a port module importing
+# either would fail only there.
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mvtracker_tpu", "msgpack", "sklearn")
 
 
 def _port_files():

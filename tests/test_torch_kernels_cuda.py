@@ -31,7 +31,12 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("b,n,m,k", [(1, 5000, 37, 16), (3, 300, 9, 1), (2, 2049, 64, 20), (2, 700, 17, 32), (2, 6, 11, 8)])
+@pytest.mark.parametrize("b,n,m,k", [
+    (1, 5000, 37, 16), (3, 300, 9, 1), (2, 2049, 64, 20), (2, 700, 17, 32), (2, 6, 11, 8),
+    # the medium model's evaluation path: k=12 at the release protocol's level 0
+    # and the predictor's defaults' level 0, and the defaults' query features
+    (8, 4096, 32, 12), (8, 49152, 132, 12), (12, 49152, 132, 1),
+])
 def test_knn_kernel_matches_plain(gen, b, n, m, k):
     ref = torch.randn(b, n, 3, generator=gen, device="cuda")
     query = torch.randn(b, m, 3, generator=gen, device="cuda")
@@ -135,6 +140,26 @@ def test_corr_kernel_matches_plain(gen, dtype, targets_dtype, c, k):
     # bits of the same targets cast to the cloud's dtype first.
     assert torch.equal(t_corr.corr_select_cuda(fvec, targets, idx), got)
     assert torch.equal(t_corr.corr_select_cuda(fvec, targets.to(dtype), idx), got)
+
+
+@pytest.mark.parametrize("dtype,targets_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+])
+@pytest.mark.parametrize("p,n", [(4096, 32), (256, 32), (49152, 132)])
+def test_corr_kernel_at_the_medium_shape(gen, dtype, targets_dtype, p, n):
+    """K=12, C=96: the generic-K instance (neighbours in chunks of 16), 24
+    sixteen-byte chunks per fp32 row (8 idle lanes of 32) and 12 per bf16 row
+    (4 idle of 16), on kNN indices of the tracker's kind."""
+    b, c, k = 8, 96, 12
+    xyz = torch.rand(b, p, 3, generator=gen, device="cuda") * 4 - 2
+    q = torch.randn(b, n, 3, generator=gen, device="cuda") * 0.5
+    idx = t_knn.knn_plain(xyz, q, k)[1]
+    fvec = torch.randn(b, p, c, generator=gen, device="cuda").to(dtype)
+    targets = torch.randn(b, n, c, generator=gen, device="cuda").to(targets_dtype)
+    got = t_corr.corr_select(fvec, targets, idx)
+    want = t_corr.corr_select_plain(fvec, targets, idx)
+    torch.testing.assert_close(got, want, rtol=0, atol=CORR_ATOL[dtype])
+    assert torch.equal(t_corr.corr_select_cuda(fvec, targets, idx), got)
 
 
 def test_corr_kernel_rejects_what_it_cannot_take(gen):
