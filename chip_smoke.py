@@ -8,7 +8,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 1. print the card's name and power limit, build the CUDA kernels from
    `mvtracker_torch/csrc/` with nvcc;
 2. each kernel against its plain PyTorch version, on the card, at every
-   shape the paths below give it (4 views x 24 frames x 256^2 with 256
+   shape the paths below give it (phase 10's k=24 and sentinel shapes too) (4 views x 24 frames x 256^2 with 256
    queries; 5 views x 18 frames x 704x1280 for the large cloud), plus a
    k > N and a far-from-origin kNN case; per
    shape the kernel's device time (launches replayed from a CUDA graph), its
@@ -49,7 +49,21 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    held-out metrics against the golden's, and the protocol run again with
    TF32 convolutions and in bf16, which that check must reject; without it
    seeded weights, two protocol scenes held against the plain CPU path;
-10. a JSON line for the kernels, then the result line.
+10. the tracker's options and the config CLIs: (a) a uniform-k medium
+    model warm-started into corr_k0=24 through the corr-width migration
+    (from a `.pth` of seeded weights, or the release msgpack), held against
+    the plain CPU path and, against the uniform model, within the CPU's own
+    comparison; (b) that model takes 3 bf16 train steps through
+    `Trainer.fit` (K1 at k=24, K2, K3 counted per step); (c) the round-4
+    inference knobs (global match, chain velocity, kNN reuse) through the
+    predictor, K1 once per level group and window, against the plain CPU
+    path (with `--release` also the protocol against a second golden);
+    (d) `cli.train` on `configs/mvtracker_longvideo.yaml` for 3 flagship
+    steps, `cli.eval` of its checkpoint, one request each through the
+    normalized and the point-transformer presets, the latter against the
+    plain CPU path; (e) `cli.serve`'s server answering 2 flagship requests
+    as the predictor does;
+11. a JSON line for the kernels, then the result line.
 
 Needs CUDA; exits non-zero without it. Imports nothing of JAX.
 """
@@ -57,7 +71,9 @@ Needs CUDA; exits non-zero without it. Imports nothing of JAX.
 from __future__ import annotations
 
 import copy
+import io
 import json
+import logging
 import subprocess
 import sys
 import tempfile
@@ -169,6 +185,35 @@ PROTOCOL_KEY = "iters3_grid0_interp128"  # the JSON row of the protocol's one se
 # A near tie in the calibration sweep: the best two thresholds closer than
 # this in AJ; the run then also reports held-out AJ at the golden's threshold.
 NEAR_TIE_AJ = 0.05
+
+# Phase 10: the options. corr_k0=24 widens the medium model's level 0.
+K0 = 24
+# (a) The migrated corr_k0 model against the uniform model it was warm-
+# started from, on the card, held against the same comparison on the CPU
+# (run in this script): the two models differ by more than rounding, because
+# the position and time embeddings added to the transformer's input are
+# sin/cos of frequencies set by the input width (`PERF.md`, PR 5). CPU
+# reading, seeded weights, protocol scenes 55501665 and 77702331 (median /
+# p90 / max): traj 1.8e-4 / 4.2e-4 / 9.5e-4, vis 2.6e-3 / 6.4e-3 / 1.3e-2.
+MIGRATION_MARGIN, MIGRATION_SLACK = 1.5, 1e-5
+# (c) The round-4 knobs, kernel path against the plain CPU path, seeded
+# weights. The global-match init puts tracks near one cloud point, where a
+# small change of the features moves them: on the CPU alone rgb + 1e-3
+# moves traj by 3.7e-6 / 1.2e-4 / 4.9e-3 and vis by 3.5e-5 / 4.4e-4 /
+# 7.5e-3 on those scenes (queries + 1e-6: traj 3.0e-8 / 9.5e-7 / 3.8e-6).
+KNOBS_PLAIN_LIMITS = {"traj": {"median": 2e-5, "p90": 5e-4, "max": 2e-2},
+                      "vis": {"median": 2e-4, "p90": 3e-3, "max": 5e-2}}
+# With `--release`, the protocol with those knobs against the JAX package's
+# outputs (`golden/release_protocol_r4knobs.*`). The trained model with the
+# global-match init is far more sensitive than without it: the port's CPU
+# path against that golden, pooled over the 16 scenes (median / p90 / max),
+# traj 1.9e-4 / 1.1e-2 / 7.8e-1, vis 7.3e-3 / 3.6e-2 / 2.6e-1, every scene's
+# p90 1e-2 to 2.4e-2 (traj) and 3.4e-2 to 5.1e-2 (vis); the threshold the
+# same and held-out AJ / OA / ATE 17.626 / 77.109 / 139.306 against 17.663 /
+# 77.134 / 139.309. Limits at about twice those readings.
+KNOBS_GOLDEN_POOLED_LIMITS = {"traj": {"median": 4e-4, "p90": 2e-2}, "vis": {"median": 1.5e-2, "p90": 7e-2}}
+KNOBS_GOLDEN_SCENE_LIMITS = {"traj": {"median": 1e-3, "p90": 5e-2, "max": 1.5},
+                             "vis": {"median": 3e-2, "p90": 0.1, "max": 0.5}}
 
 # Tolerances of the kernel-vs-plain checks.
 KNN_RTOL = 1e-5  # both compute d^2 directly in fp32; only rounding differs
@@ -592,6 +637,117 @@ def phase_kernels_evaluation(torch, knn_ops, corr_ops, gen, stats):
     log(f"K2 corr evaluation shapes passed: max abs error {st['err']:.3e}; a second run gives the same bits")
 
 
+def phase_kernels_options(torch, knn_ops, corr_ops, gen, stats):
+    """Phase 2, continued: the shapes the tracker's options give the kernels,
+    against their plain versions with times and bounds per shape. corr_k0=24
+    on the medium model: K1 and K2 at k=24 on level 0 of the release
+    protocol and of the predictor's defaults, K3 at K=24 on the protocol's
+    training level 0; `corr_filter_invalid_depth`: K1 (and K5) on a cloud
+    with half its points and one whole frame at the 1e9 sentinel. Adds the
+    errors to `stats`."""
+    dev = torch.device("cuda")
+
+    def cloud(b, n):
+        return (torch.rand(b, n, 3, generator=gen, device=dev) * 4 - 2).contiguous()
+
+    def queries(b, m):
+        return (torch.randn(b, m, 3, generator=gen, device=dev) * 0.5).contiguous()
+
+    s, k, c = EVAL_WINDOW, K0, EVAL_C
+    windows = 2
+    sentinel = cloud(s, PROTOCOL_LEVELS[0])
+    sentinel[:, torch.randperm(PROTOCOL_LEVELS[0], generator=gen, device=dev)[: PROTOCOL_LEVELS[0] // 2]] = 1e9
+    sentinel[3] = 1e9  # a frame with no valid depth
+    knn_shapes = [  # (label, ref, M, k, launches per request or step)
+        ("protocol level0", cloud(s, PROTOCOL_LEVELS[0]), PROTOCOL_QUERIES, k, windows * PROTOCOL_ITERS),
+        ("defaults level0", cloud(s, SERVE_LEVELS[0]), SERVE_QUERIES, k, windows * SERVE_ITERS),
+        ("protocol level0, sentinel cloud", sentinel, PROTOCOL_QUERIES, k, 0),
+        ("protocol level0, sentinel cloud", sentinel, PROTOCOL_QUERIES, EVAL_K, 0),
+    ]
+    st = stats["knn"]
+    for label, ref, m, kk, per_req in knn_shapes:
+        b, n = ref.shape[:2]
+        query = queries(b, m)
+        st["err"] = max(st["err"], check_knn(knn_ops, ref, query, kk))
+        if label.endswith("sentinel cloud"):
+            # Ties decide there: the exact kernel's indices equal the stable sort's.
+            stats["knn_exact"]["err"] = max(stats["knn_exact"]["err"], check_knn_exact(knn_ops, ref, query, kk))
+            d = knn_ops.knn_cuda(ref, query, kk)[0]
+            if not (bool((d[3] > 1e8).all()) and bool((d[:3] < 1e8).all())):
+                raise AssertionError("knn on the sentinel cloud: real points do not come first")
+        ms = device_ms(lambda: knn_ops.knn_cuda(ref, query, kk), reps=50)
+        host = wrapper_ms(lambda: knn_ops.knn_cuda(ref, query, kk), reps=50)
+        plain = device_ms(lambda: knn_ops.knn_plain(ref, query, kk), reps=5)
+        bnd, by = knn_bound(b, n, m, kk)
+        log(f"K1 knn options {label}: B={b} N={n} M={m} k={kk} kernel_ms={ms:.5f} wrapper_ms={host:.5f} "
+            f"plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}) launches/request={per_req}")
+    log(f"K1 knn option shapes passed: max abs distance error {st['err']:.3e}; on the sentinel cloud the exact "
+        f"kernel's indices equal the stable sort's")
+
+    st = stats["corr"]
+    for label, p, n, per_req in (("protocol level0", PROTOCOL_LEVELS[0], PROTOCOL_QUERIES, windows * PROTOCOL_ITERS),
+                                 ("defaults level0", SERVE_LEVELS[0], SERVE_QUERIES, windows * SERVE_ITERS)):
+        xyz, q = cloud(s, p), queries(s, n)
+        idx = knn_ops.knn_plain(xyz, q, k)[1]
+        for dt_name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            fvec = torch.randn(s, p, c, generator=gen, device=dev).to(dt)
+            targets = torch.randn(s, n, c, generator=gen, device=dev)
+            got = corr_ops.corr_select_cuda(fvec, targets, idx)
+            want = corr_ops.corr_select_plain(fvec, targets, idx)
+            tol = CORR_TOL["bfloat16" if dt == torch.bfloat16 else "float32"]
+            err = float((got - want).abs().max())
+            if err > tol or not (torch.equal(corr_ops.corr_select_cuda(fvec, targets, idx), got)
+                                 and torch.equal(corr_ops.corr_select_cuda(fvec, targets.to(dt), idx), got)):
+                raise AssertionError(f"corr K={k} {label} {dt_name}: max err {err:.3e} (tol {tol}), or a second run "
+                                     "or targets cast first differ")
+            st["err"] = max(st["err"], err)
+            ms = device_ms(lambda: corr_ops.corr_select_cuda(fvec, targets, idx), reps=100)
+            host = wrapper_ms(lambda: corr_ops.corr_select_cuda(fvec, targets, idx), reps=100)
+            plain = device_ms(lambda: corr_ops.corr_select_plain(fvec, targets, idx), reps=20)
+            rows = sum(int(torch.unique(idx[b]).numel()) for b in range(s))
+            nbytes = rows * c * fvec.element_size() + targets.numel() * 4 + idx.numel() * 8 + idx.numel() * 4
+            bnd, by = bound(nbytes, 2.0 * idx.numel() * c)
+            log(f"K2 corr options {label} {dt_name}: fvec=[{s},{p},{c}] targets fp32 idx=[{s},{n},{k}] "
+                f"kernel_ms={ms:.5f} wrapper_ms={host:.5f} plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}, {rows} "
+                f"distinct rows) launches/request={per_req}; a second run and targets cast first give the same bits")
+
+    st = stats["corr_bwd"]
+    p, n = PROTOCOL_LEVELS[0], PROTOCOL_QUERIES
+    xyz, q = cloud(s, p), queries(s, n)
+    idx = knn_ops.knn_plain(xyz, q, k)[1]
+    targets = torch.randn(s, n, c, generator=gen, device=dev)
+    g = torch.randn(s, n, k, generator=gen, device=dev)
+    for dt_name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        fvec = torch.randn(s, p, c, generator=gen, device=dev).to(dt)
+        d_fvec, d_targets = corr_ops.corr_select_backward_cuda(fvec, targets, idx, g)
+        again_fvec, again_targets = corr_ops.corr_select_backward_cuda(fvec, targets, idx, g)
+        want_fvec, want_targets = corr_ops.corr_select_backward_plain(fvec, targets, idx, g)
+        gap_f = (d_fvec.float() - want_fvec.float()).abs()
+        err_t = float((d_targets - want_targets).abs().max())
+        if dt_name == "fp32":
+            ok = float(gap_f.max()) <= CORR_BWD_ATOL
+            st["err"] = max(st["err"], float(gap_f.max()))
+        else:
+            ok = bool((gap_f <= CORR_BWD_BF16_RTOL * want_fvec.float().abs() + CORR_BWD_ATOL).all())
+        if not (ok and err_t <= CORR_BWD_ATOL):
+            raise AssertionError(f"corr backward K={k} {dt_name}: d_fvec err {float(gap_f.max()):.3e}, d_targets "
+                                 f"err {err_t:.3e}")
+        if not (torch.equal(again_fvec, d_fvec) and torch.equal(again_targets, d_targets)):
+            raise AssertionError(f"corr backward K={k} {dt_name}: two runs on one input differ")
+        st["err"] = max(st["err"], err_t)
+        ms = device_ms(lambda: corr_ops.corr_select_backward_cuda(fvec, targets, idx, g), reps=50)
+        host = wrapper_ms(lambda: corr_ops.corr_select_backward_cuda(fvec, targets, idx, g), reps=50)
+        plain = device_ms(lambda: corr_ops.corr_select_backward_plain(fvec, targets, idx, g), reps=10)
+        rows = sum(int(torch.unique(idx[b]).numel()) for b in range(s))
+        nbytes = (rows * c * fvec.element_size() + g.numel() * 4 + idx.numel() * 8 + targets.numel() * 4
+                  + fvec.numel() * fvec.element_size() + targets.numel() * 4)
+        bnd, by = bound(nbytes, 4.0 * idx.numel() * c)
+        log(f"K3 corr_bwd options protocol training level0 {dt_name}: fvec=[{s},{p},{c}] targets fp32 g=[{s},{n},{k}] "
+            f"function_ms={ms:.5f} wrapper_ms={host:.5f} plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}, {rows} "
+            f"distinct rows) d_fvec max err {float(gap_f.max()):.3e}, d_targets {err_t:.3e}; two runs give the same "
+            f"bits; launches/step={windows * PROTOCOL_ITERS}")
+
+
 def to_device(scene, dev):
     import torch
 
@@ -960,37 +1116,42 @@ def beyond(gap: dict, limits: dict) -> list:
     return [q for q in limits if gap[q] > limits[q]]
 
 
-def golden_failures(scenes: dict, pooled: dict) -> list:
-    """Every limit of the golden check that the gaps break."""
-    failures = [f"{split} scene {name}: {field} gap {gap} beyond {GOLDEN_SCENE_LIMITS[field]}"
+def golden_failures(scenes: dict, pooled: dict, pooled_limits=None, scene_limits=None) -> list:
+    """Every limit of the golden check that the gaps break (the release
+    protocol's limits unless others are given)."""
+    pooled_limits, scene_limits = pooled_limits or GOLDEN_POOLED_LIMITS, scene_limits or GOLDEN_SCENE_LIMITS
+    failures = [f"{split} scene {name}: {field} gap {gap} beyond {scene_limits[field]}"
                 for (split, name), fields in scenes.items() for field, gap in fields.items()
-                if beyond(gap, GOLDEN_SCENE_LIMITS[field])]
-    return failures + [f"{field} gap pooled over the 16 scenes {gap} beyond {GOLDEN_POOLED_LIMITS[field]}"
-                       for field, gap in pooled.items() if beyond(gap, GOLDEN_POOLED_LIMITS[field])]
+                if beyond(gap, scene_limits[field])]
+    return failures + [f"{field} gap pooled over the 16 scenes {gap} beyond {pooled_limits[field]}"
+                       for field, gap in pooled.items() if beyond(gap, pooled_limits[field])]
 
 
 def fmt_gap(gap: dict) -> str:
     return "/".join(f"{gap[q]:.2e}" for q in ("median", "p90", "max"))
 
 
-def check_release(eval_checkpoint, result, smi) -> None:
-    """The release weights' protocol against the JAX package's golden: every
-    scene's tracks (all read and printed before a failure is raised), the
-    calibrated threshold, the held-out metrics and CopyCat's row."""
+def check_release(eval_checkpoint, result, smi, golden_name="release_protocol", pooled_limits=None,
+                  scene_limits=None) -> None:
+    """The release weights' protocol against the JAX package's golden
+    (`golden_name` in GOLDEN_DIR): every scene's tracks (all read and
+    printed before a failure is raised), the calibrated threshold, the
+    held-out metrics and CopyCat's row."""
     from mvtracker_torch.evaluation.evaluator import Evaluator
 
-    golden = np.load(GOLDEN_DIR / "release_protocol.npz")
-    with open(GOLDEN_DIR / "release_protocol.json") as f:
+    pooled_limits, scene_limits = pooled_limits or GOLDEN_POOLED_LIMITS, scene_limits or GOLDEN_SCENE_LIMITS
+    golden = np.load(GOLDEN_DIR / f"{golden_name}.npz")
+    with open(GOLDEN_DIR / f"{golden_name}.json") as f:
         golden_rows = json.load(f)["rows"]
     outputs = result.outputs[PROTOCOL_KEY]
     scenes, pooled = golden_gaps(outputs, golden)
     for (split, name), gap in scenes.items():
-        log(f"release protocol {split} {name} vs JAX (median/p90/max of |gap|): traj {fmt_gap(gap['traj'])}, "
+        log(f"{golden_name} {split} {name} vs JAX (median/p90/max of |gap|): traj {fmt_gap(gap['traj'])}, "
             f"vis {fmt_gap(gap['vis'])}")
-    log("release protocol vs the JAX package's fp32 CPU outputs, pooled over 16 scenes (median/p90/max): "
-        + "; ".join(f"{field} {fmt_gap(pooled[field])} (limits {GOLDEN_POOLED_LIMITS[field]})" for field in pooled)
-        + f"; per-scene limits {GOLDEN_SCENE_LIMITS}")
-    failures = golden_failures(scenes, pooled)
+    log(f"{golden_name} vs the JAX package's fp32 CPU outputs, pooled over 16 scenes (median/p90/max): "
+        + "; ".join(f"{field} {fmt_gap(pooled[field])} (limits {pooled_limits[field]})" for field in pooled)
+        + f"; per-scene limits {scene_limits}")
+    failures = golden_failures(scenes, pooled, pooled_limits, scene_limits)
     rows, grow = result.rows[PROTOCOL_KEY], golden_rows[PROTOCOL_KEY]
     sweep = {float(t): v["average_jaccard"] for t, v in rows["calib_threshold_sweep"].items()}
     gsweep = {float(t): v["average_jaccard"] for t, v in grow["calib_threshold_sweep"].items()}
@@ -1004,7 +1165,7 @@ def check_release(eval_checkpoint, result, smi) -> None:
             f"threshold {gth}: {at_golden[gth]['average_jaccard']} (golden {grow['heldout_calibrated']['average_jaccard']})")
     r, g = rows["heldout_calibrated"], grow["heldout_calibrated"]
     copycat, gcopycat = result.rows["copycat"], golden_rows["copycat"]
-    log(f"release protocol metrics on the card: calibrated threshold {th} (golden {gth}); held-out "
+    log(f"{golden_name} metrics on the card: calibrated threshold {th} (golden {gth}); held-out "
         + ", ".join(f"{short} {r[m]} (golden {g[m]})" for m, short in METRICS)
         + "; CopyCat " + ", ".join(f"{short} {copycat[m]} (golden {gcopycat[m]})" for m, short in METRICS) + f" [{smi}]")
     if failures:
@@ -1213,13 +1374,397 @@ def phase_evaluation(torch, smi, knn_ops, corr_ops, release):
     return launches
 
 
+def seeded_weights(model, seed=0):
+    """Seeded weights with the flow head scaled by FLOW_HEAD_GAIN (phases 4,
+    6, 9 and 10)."""
+    from mvtracker_torch.convert import random_state_dict
+
+    sd = random_state_dict(model, seed=seed)
+    for name in sd:
+        if name.startswith("updateformer.flow_head.") and name.endswith("weight"):
+            sd[name] = sd[name] * FLOW_HEAD_GAIN
+    model.load_state_dict(sd)
+    return model
+
+
+def protocol_scenes():
+    """Calibration scene 0 and held-out scene 0 of the release protocol."""
+    from mvtracker_torch.datasets.loader import SyntheticSceneDataset
+
+    kw = dict(n_views=4, n_frames=EVAL_T, height=128, width=128, n_tracks=PROTOCOL_QUERIES, texture_detail=1.0,
+              texture_noise=1.0)
+    return [SyntheticSceneDataset(n_scenes=1, cache=True, seed=seed, randomize=True, **kw)[0] for seed in (555, 777)]
+
+
+def windows_of(query_points, t, window, hop):
+    """Windows the model runs for these queries (from the earliest one)."""
+    from mvtracker_torch.models.mvtracker import window_starts
+
+    qt_min = int(np.asarray(query_points)[..., 0].min())
+    return min(max((t - qt_min - 1) // hop, 1), len(window_starts(t, window)))
+
+
+def outputs_on(predictor, dps):
+    """{seq_name: (traj, vis)} of `predictor` on the scenes, on the host."""
+    import torch
+
+    from mvtracker_torch.evaluation.evaluator import to_host
+
+    out = {}
+    with torch.no_grad():
+        for dp in dps:
+            o = predictor(*request_args(dp))
+            out[dp.seq_name] = (to_host(o["traj"]), to_host(o["vis"]))
+    return out
+
+
+def check_gaps(got, want, limits, label) -> dict:
+    """Per scene |got - want| of traj and vis against `limits`; returns the
+    stats, raises after printing them all if any limit is broken."""
+    failures, gaps = [], {}
+    for name in got:
+        for i, field in enumerate(("traj", "vis")):
+            gap = gaps[name, field] = gap_stats(got[name][i], want[name][i])
+            log(f"{label} on {name}: {field} gap (median/p90/max) {fmt_gap(gap)} (limits {limits[field]})")
+            failures += [f"{name} {field} {q}" for q in beyond(gap, limits[field])]
+    if failures:
+        raise AssertionError(f"{label}: {failures}")
+    return gaps
+
+
+class LogRecords(logging.Handler):
+    """Collects the messages logged while the block runs (at INFO and up)."""
+
+    def __enter__(self):
+        self.messages = []
+        self.root = logging.getLogger()
+        self.saved = self.root.level
+        self.root.setLevel(logging.INFO)
+        self.root.addHandler(self)
+        return self
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __exit__(self, *exc):
+        self.root.removeHandler(self)
+        self.root.setLevel(self.saved)
+
+
+def phase_options(torch, smi, knn_ops, corr_ops, release):
+    """Phase 10: the tracker's options, warm start with the corr-width
+    migration, and the config-driven CLIs. Returns {path: launch totals}."""
+    import threading
+    import urllib.request
+
+    from mvtracker_torch.cli import eval as cli_eval
+    from mvtracker_torch.cli import eval_checkpoint
+    from mvtracker_torch.cli import serve as cli_serve
+    from mvtracker_torch.cli import train as cli_train
+    from mvtracker_torch.config import build_model, load_config
+    from mvtracker_torch.convert import load_release
+    from mvtracker_torch.datasets.loader import PrefetchLoader, SyntheticSceneDataset
+    from mvtracker_torch.device import fp32_precision
+    from mvtracker_torch.evaluation.predictor import EvaluationPredictor
+    from mvtracker_torch.presets import build_model as preset_model
+    from mvtracker_torch.scene import make_scene
+    from mvtracker_torch.training import step as step_lib
+    from mvtracker_torch.training.train import TrainConfig, Trainer
+
+    dev = torch.device("cuda")
+    counters = {"knn": knn_ops.knn_cuda, "knn_tiled": knn_ops.knn_tiled_cuda, "knn_exact": knn_ops.knn_exact_cuda,
+                "corr": corr_ops.corr_select_cuda, "corr_bwd": corr_ops.corr_select_backward_cuda}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+        knn_ops.knn_cuda.launches_by_k = {}
+
+    def made():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    def medium(**kw):
+        return preset_model("medium", vis_geom=True, vis_head_hidden=128, device=dev, **kw).eval()
+
+    def weights(model):
+        return load_release(release, model) if release else seeded_weights(model)
+
+    protocol_kw = dict(interp_shape=(128, 128), grid_size=0, n_iters=PROTOCOL_ITERS)
+    plain_limits = GOLDEN_SCENE_LIMITS if release else SEEDED_PLAIN_LIMITS
+    paths = {}
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    torch.cuda.empty_cache()
+    dps = protocol_scenes()
+    windows = [windows_of(dp.query_points_3d, EVAL_T, EVAL_WINDOW, EVAL_HOP) for dp in dps]
+    tmp = tempfile.TemporaryDirectory()
+
+    # (a) The corr-width migration: the uniform medium model saved with
+    # torch.save (or the release msgpack), warm-started into corr_k0=24.
+    t0 = time.perf_counter()
+    uniform = weights(medium(compute_dtype="float32", knn_backend="exact"))
+    source = release or str(Path(tmp.name) / "uniform.pth")
+    if not release:
+        torch.save(uniform.state_dict(), source)
+    migrated = medium(compute_dtype="float32", corr_k0=K0, knn_backend="exact")
+    trainer = Trainer(migrated, TrainConfig(exp_dir=tmp.name))
+    with LogRecords() as logs:
+        trainer.warm_start(step_lib.init_state(migrated, trainer.optimizer), source, strict=True)
+    migration = [m for m in logs.messages if m.startswith("warm-start: migrated input_transform")]
+    if not migration:
+        raise AssertionError(f"the warm start logged no corr-width migration: {logs.messages}")
+    log(f"options (a) warm start from {source}: {migration[0]}")
+    reset()
+    with fp32_precision(exact=True):
+        card_u = outputs_on(EvaluationPredictor(uniform, **protocol_kw), dps)
+        reset()
+        card_m = outputs_on(EvaluationPredictor(migrated, **protocol_kw), dps)
+        paths["options_migration"] = {k: made()[k] for k in ("knn_exact", "corr")}
+        want = {"knn_exact": sum(1 + w * PROTOCOL_ITERS * 2 for w in windows),
+                "corr": sum(w * PROTOCOL_ITERS * 3 for w in windows)}
+        if paths["options_migration"] != want:
+            raise AssertionError(f"migrated model: launches {paths['options_migration']}, want {want}")
+        cpu_u = outputs_on(EvaluationPredictor(copy.deepcopy(uniform).cpu(), device="cpu", **protocol_kw), dps)
+        cpu_m = outputs_on(EvaluationPredictor(copy.deepcopy(migrated).cpu(), device="cpu", **protocol_kw), dps)
+    check_gaps(card_m, cpu_m, plain_limits, "options (a) migrated model, kernel path (K5) vs plain CPU path")
+    cpu_gap = {(n, f): gap_stats(cpu_m[n][i], cpu_u[n][i]) for n in cpu_m for i, f in enumerate(("traj", "vis"))}
+    limits = {key: {q: MIGRATION_MARGIN * v + MIGRATION_SLACK for q, v in g.items()} for key, g in cpu_gap.items()}
+    failures = []
+    for (name, field), lim in limits.items():
+        gap = gap_stats(card_m[name][("traj", "vis").index(field)], card_u[name][("traj", "vis").index(field)])
+        log(f"options (a) migrated vs uniform model on the card, {name} {field} (median/p90/max): {fmt_gap(gap)}; "
+            f"the same on the CPU {fmt_gap(cpu_gap[name, field])}; limits {fmt_gap(lim)}")
+        failures += [f"{name} {field} {q}" for q in beyond(gap, lim)]
+    if failures:
+        raise AssertionError(f"migrated vs uniform on the card beyond the CPU's comparison: {failures}")
+    log(f"options (a) migration: {len(dps)} protocol scenes, fp32 exact, K5 on both sides, "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    del uniform, migrated
+
+    # (b) The warm-started corr_k0 model in bf16 takes 3 train steps through
+    # Trainer.fit at the protocol's shape.
+    t0 = time.perf_counter()
+    model = medium(corr_k0=K0).train()
+    trainer = Trainer(model, TrainConfig(train_iters=PROTOCOL_ITERS, adaptive_iters=False, warmup_steps=0, telemetry_freq=1,
+                                         exp_dir=str(Path(tmp.name) / "options_train"), warm_start_ckpt=source))
+    loader = PrefetchLoader(SyntheticSceneDataset(n_scenes=TRAIN_STEPS, cache=True, seed=555, randomize=True,
+                                                  n_views=4, n_frames=EVAL_T, height=128, width=128,
+                                                  n_tracks=PROTOCOL_QUERIES, texture_detail=1.0, texture_noise=1.0),
+                            batch_size=1, shuffle=False, num_workers=1)
+    drawn, steps = [], []
+
+    def recording(it):
+        for batch in it:
+            drawn.append(windows_of(batch["query_points"], EVAL_T, EVAL_WINDOW, EVAL_HOP))
+            yield batch
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter(), made(), dict(knn_ops.knn_cuda.launches_by_k),
+                      {k: float(v) for k, v in metrics.items()}))
+
+    reset()
+    with LogRecords() as logs:
+        state = trainer.fit(recording(iter(loader)), max_steps=TRAIN_STEPS, on_step=on_step)
+    if not any(m.startswith("warm-start: migrated input_transform") for m in logs.messages):
+        raise AssertionError("fit did not warm-start from warm_start_ckpt")
+    telemetry = [m for m in logs.messages if "mean/med/std" in m]
+    paths["options_train"] = {k: made()[k] for k in ("knn", "corr", "corr_bwd")}
+    last, last_k, last_t = {k: 0 for k in counters}, {}, t0
+    for i, (t, counts, by_k, metrics) in enumerate(steps):
+        w = drawn[i]
+        step_counts = {k: counts[k] - last[k] for k in ("knn", "corr", "corr_bwd")}
+        step_k = {k: by_k.get(k, 0) - last_k.get(k, 0) for k in by_k}
+        want = {"knn": 1 + w * PROTOCOL_ITERS * 2, "corr": w * PROTOCOL_ITERS * 3, "corr_bwd": w * PROTOCOL_ITERS * 3}
+        want_k = {1: 1, K0: w * PROTOCOL_ITERS, EVAL_K: w * PROTOCOL_ITERS}
+        if step_counts != want or step_k != want_k or counts["knn_exact"] != 0:
+            raise AssertionError(f"options train step {i}: launches {step_counts} by k {step_k}, want {want} "
+                                 f"by k {want_k}")
+        if not all(np.isfinite(v) for v in metrics.values()) or not metrics["grad_norm"] > 0:
+            raise AssertionError(f"options train step {i}: metrics {metrics}")
+        log(f"options (b) train step {i}: {(t - last_t) * 1e3:.2f} ms, loss {metrics['loss']:.6f}, grad_norm "
+            f"{metrics['grad_norm']:.4f}, {w} windows: K1/K2/K3 launches {step_counts} (K1 by k {step_k}: "
+            f"feat_init k=1, level 0 k={K0}, levels 1-2 together k={EVAL_K}) [{smi}]")
+        last, last_k, last_t = counts, by_k, t
+    if state.step != TRAIN_STEPS:
+        raise AssertionError(f"the trainer took {state.step} steps")
+    log(f"options (b) training: corr_k0={K0} medium model, bf16, {TRAIN_STEPS} steps of the protocol's shape in "
+        f"{time.perf_counter() - t0:.1f} s; the trainer's telemetry per step (data, then the step to its loss fetch): "
+        f"{[m.split(' | ')[-1] for m in telemetry]} [{smi}]")
+    del model, trainer, state
+
+    # (c) The round-4 inference knobs (global match, chain velocity 1.0, kNN
+    # reuse) through EvaluationPredictor: one kNN call per level group and
+    # window instead of per iteration.
+    t0 = time.perf_counter()
+    knobs = dict(global_match=True, chain_velocity=1.0, knn_reuse=True)
+    model = weights(medium(compute_dtype="float32", **knobs))
+    reset()
+    with fp32_precision(exact=True):
+        counted = outputs_on(EvaluationPredictor(model, **protocol_kw), dps)
+    paths["options_eval"] = {k: made()[k] for k in ("knn", "corr")}
+    want = {"knn": sum(1 + w * 2 for w in windows), "corr": sum(w * PROTOCOL_ITERS * 3 for w in windows)}
+    if paths["options_eval"] != want or made()["knn_exact"]:
+        raise AssertionError(f"round-4 knobs: launches {made()}, want {want}")
+    log(f"options (c) round-4 knobs: K1 launches {paths['options_eval']['knn']} for {len(dps)} requests "
+        f"({want['knn'] / len(dps):.1f} a request; "
+        f"{sum(1 + w * PROTOCOL_ITERS * 2 for w in windows) / len(dps):.1f} without reuse), K2 "
+        f"{paths['options_eval']['corr']}; tracks finite: "
+        f"{all(np.isfinite(t).all() and np.isfinite(v).all() for t, v in counted.values())}")
+    model.knn_backend = "exact"
+    with fp32_precision(exact=True):
+        card = outputs_on(EvaluationPredictor(model, **protocol_kw), dps)
+        cpu = outputs_on(EvaluationPredictor(copy.deepcopy(model).cpu(), device="cpu", **protocol_kw), dps)
+    check_gaps(card, cpu, KNOBS_GOLDEN_SCENE_LIMITS if release else KNOBS_PLAIN_LIMITS,
+               "options (c) round-4 knobs, kernel path (K5) vs plain CPU path")
+    del model
+    if release:
+        args = eval_checkpoint.build_parser().parse_args(
+            PROTOCOL_ARGV + ["--params_msgpack", release, "--global_match", "--chain_velocity", "1.0", "--knn_reuse"])
+        with torch.no_grad():
+            result = eval_checkpoint.run(args)
+        check_release(eval_checkpoint, result, smi, golden_name="release_protocol_r4knobs",
+                      pooled_limits=KNOBS_GOLDEN_POOLED_LIMITS, scene_limits=KNOBS_GOLDEN_SCENE_LIMITS)
+    log(f"options (c) evaluation with the round-4 knobs: {time.perf_counter() - t0:.1f} s [{smi}]")
+
+    # (d) The config CLIs at flagship width: train 3 steps of the long-video
+    # preset (remat, kNN reuse, bf16) on the data config's synthetic scenes,
+    # evaluate the checkpoint, one request each through the normalized and
+    # the point-transformer presets.
+    exp = str(Path(tmp.name) / "longvideo")
+    config = str(ROOT / "configs" / "mvtracker_longvideo.yaml")
+    argv = ["--config", config, "--device", "cuda", "trainer.total_steps=3", "trainer.adaptive_iters=false",
+            f"trainer.exp_dir={exp}", "trainer.save_ckpt_freq=3", "trainer.telemetry_freq=1"]
+    torch.cuda.empty_cache()
+    reset()
+    t0 = time.perf_counter()
+    with LogRecords() as logs:
+        state = cli_train.main(argv)
+    train_s = time.perf_counter() - t0
+    telemetry = [m.split(" | ")[-1] for m in logs.messages if "mean/med/std" in m]
+    paths["config_cli_train"] = {k: made()[k] for k in ("knn", "corr", "corr_bwd")}
+    per_step = {"knn": 1 + 3 * 3, "corr": 3 * ITERS * 4, "corr_bwd": 3 * ITERS * 4}
+    want = {k: v * 3 for k, v in per_step.items()}
+    if state.step != 3 or paths["config_cli_train"] != want or made()["knn_exact"] or made()["knn_tiled"]:
+        raise AssertionError(f"cli.train: {state.step} steps, launches {made()}, want {want} (3 windows a step)")
+    log(f"options (d) cli.train {' '.join(argv[:2])} {' '.join(argv[4:])}: 3 steps in {train_s:.1f} s with the "
+        f"scenes' rendering; launches {paths['config_cli_train']} ({per_step} a step); the trainer's telemetry per step "
+        f"(data, then the step to its loss fetch): {telemetry} [{smi}]")
+    del state
+    torch.cuda.empty_cache()
+    reset()
+    t0 = time.perf_counter()
+    with LogRecords() as logs:
+        summary = cli_eval.main(["--config", config, "--device", "cuda", f"trainer.exp_dir={exp}",
+                                 "eval.max_sequences=2"])
+    eval_s = time.perf_counter() - t0
+    paths["config_cli_eval"] = {k: made()[k] for k in ("knn", "corr")}
+    calls = 3  # the Evaluator runs the first scene of a shape once untimed
+    eval_iters = load_config(config).eval.n_iters
+    want = {"knn": calls * (1 + 3 * 3), "corr": calls * 3 * eval_iters * 4}
+    if "evaluating checkpoint at step 3" not in logs.messages or paths["config_cli_eval"] != want:
+        raise AssertionError(f"cli.eval: launches {made()}, want {want}; restored: "
+                             f"{[m for m in logs.messages if 'checkpoint' in m]}")
+    log(f"options (d) cli.eval restored step 3 and evaluated {summary['n_sequences']} sequences in {eval_s:.1f} s "
+        f"(AJ {summary['all_any']['average_jaccard']:.3f}, fps {summary['fps']:.2f}); launches "
+        f"{paths['config_cli_eval']}")
+
+    reset()
+    requests = {}
+    scene = make_scene(np.random.default_rng(30), V, T, H, W, N_QUERIES)
+    for name in ("mvtracker_normalized", "mvtracker_ptv3"):
+        model = seeded_weights(build_model(load_config(str(ROOT / "configs" / f"{name}.yaml")).model, device=dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with fp32_precision(exact=True):
+            out = model(*to_device(scene, dev), iters=ITERS)
+        torch.cuda.synchronize()
+        if not (bool(torch.isfinite(out["traj"]).all()) and bool(torch.isfinite(out["vis"]).all())):
+            raise AssertionError(f"{name}: non-finite outputs")
+        requests[name] = model
+        log(f"options (d) {name}: one request of {V} views x {T} frames x {H}x{W}, {N_QUERIES} queries, fp32, "
+            f"iters {ITERS}: {(time.perf_counter() - t0) * 1e3:.2f} ms (first) [{smi}]")
+    paths["config_requests"] = {k: made()[k] for k in ("knn", "corr")}
+    want = {"knn": 2 * K1_PER_FWD, "corr": 2 * K2_PER_FWD}
+    if paths["config_requests"] != want:
+        raise AssertionError(f"normalized and PTv3 requests: launches {made()}, want {want}")
+    model = requests.pop("mvtracker_ptv3")
+    del requests
+    model.knn_backend = "exact"
+    t0 = time.perf_counter()
+    with fp32_precision(exact=True):
+        got = model(*to_device(scene, dev), iters=ITERS)
+        want_out = copy.deepcopy(model).cpu()(*to_device(scene, torch.device("cpu")), iters=ITERS)
+    for key, (tmax, tmed) in (("traj", (E2E_TRAJ_MAX, E2E_TRAJ_MEDIAN)), ("vis", (E2E_VIS_MAX, E2E_VIS_MEDIAN))):
+        gap = (got[key].cpu() - want_out[key]).abs()
+        log(f"options (d) mvtracker_ptv3 fp32 exact at the flagship shape, kernel path (K5) vs plain CPU path: "
+            f"{key} max gap {float(gap.max()):.3e} (limit {tmax}), median {float(gap.median()):.3e} (limit {tmed}); "
+            f"{time.perf_counter() - t0:.1f} s with the CPU's forward")
+        if not (float(gap.max()) <= tmax and float(gap.median()) <= tmed):
+            raise AssertionError(f"mvtracker_ptv3 kernel path vs plain: {key} gap too large")
+    del model
+
+    # (e) cli/serve.py's server on 127.0.0.1 with the checkpoint of (d)
+    # answers 2 requests at the flagship shape, as the predictor does.
+    t0 = time.perf_counter()
+    args = cli_serve.build_parser().parse_args(["--ckpt_dir", exp, "--device", "cuda"])
+    model = cli_serve.load_model(args)
+    server, predictor = cli_serve.build_server(model, port=0, interp_shape=None, grid_size=args.grid_size,
+                                               n_iters=args.iters, chunk_frames=args.chunk_frames, device="cuda")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.server_address[:2]
+    reset()
+    try:
+        times = []
+        for seed in (40, 41):
+            scene = make_scene(np.random.default_rng(seed), V, T, H, W, N_QUERIES)
+            buf = io.BytesIO()
+            np.savez(buf, **dict(zip(("rgbs", "depths", "query_points", "intrs", "extrs"), scene)))
+            t1 = time.perf_counter()
+            req = urllib.request.Request(f"http://{host}:{port}/track", data=buf.getvalue(), method="POST")
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                answer = np.load(io.BytesIO(resp.read()))
+            times.append((time.perf_counter() - t1) * 1e3)
+            with torch.no_grad():
+                direct = predictor(*scene)
+            if not (np.array_equal(answer["traj"], direct["traj"].cpu().numpy())
+                    and np.array_equal(answer["vis"], direct["vis"].cpu().numpy())):
+                raise AssertionError(f"served request {seed}: the answer differs from the predictor's")
+        with urllib.request.urlopen(f"http://{host}:{port}/healthz", timeout=30) as resp:
+            health = json.loads(resp.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    paths["serving_cli"] = {k: made()[k] for k in ("knn", "corr")}
+    per_request = {"knn": 1 + 3 * args.iters * 3, "corr": 3 * args.iters * 4}
+    want = {k: 4 * v for k, v in per_request.items()}  # 2 served, 2 direct
+    if paths["serving_cli"] != want or (health["requests"], health["errors"]) != (2, 0):
+        raise AssertionError(f"serving: launches {paths['serving_cli']}, want {want}; healthz {health}")
+    log(f"options (e) cli.serve on {host}:{port} with the step-3 checkpoint: 2 requests of {V} views x {T} frames x "
+        f"{H}x{W}, {N_QUERIES} queries, fp32, iters {args.iters}: {[round(x, 2) for x in times]} ms each with the "
+        f"npz transfer; answers equal the predictor's bit for bit; healthz {health}; "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    del model, predictor
+    tmp.cleanup()
+    return paths
+
+
 def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--release", default=None,
-                        help="release checkpoint (flax msgpack) for phase 9, held against the golden outputs")
+                        help="release checkpoint (flax msgpack) for phases 9 and 10, held against the golden outputs")
+    parser.add_argument("--phases", default=None,
+                        help="comma-separated phases to run (of 2 to 10; 8 runs with 7) for a quicker check of one "
+                             "part; such a run prints no kernels line and no result line")
     cli = parser.parse_args()
+    only = None if cli.phases is None else {int(x) for x in cli.phases.split(",")}
+
+    def wanted(phase):
+        return only is None or phase in only
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1244,20 +1789,35 @@ def main() -> int:
     log(f"built kernels {list(_cuda.SOURCES)} in {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    stats = phase_kernels(torch, knn_ops, corr_ops, gen)
-    phase_kernels_evaluation(torch, knn_ops, corr_ops, gen, stats)
-    serving = phase_main_path(torch, MVTracker, random_state_dict, make_scene, knn_ops, corr_ops)
-    phase_end_to_end(torch, MVTracker, random_state_dict, make_scene, knn_ops)
-    training = phase_train_path(torch, smi, MVTracker, random_state_dict, make_scene, knn_ops, corr_ops)
-    phase_train_end_to_end(torch, MVTracker, random_state_dict, make_scene, corr_ops)
-    large, cloud = phase_large_cloud(torch, smi, MVTracker, random_state_dict, make_scene, knn_ops, corr_ops)
-    direct = phase_direct_knn(torch, smi, knn_ops, cloud)
-    evaluation = phase_evaluation(torch, smi, knn_ops, corr_ops, cli.release)
+    if wanted(2):
+        stats = phase_kernels(torch, knn_ops, corr_ops, gen)
+        phase_kernels_evaluation(torch, knn_ops, corr_ops, gen, stats)
+        phase_kernels_options(torch, knn_ops, corr_ops, gen, stats)
+    if wanted(3):
+        serving = phase_main_path(torch, MVTracker, random_state_dict, make_scene, knn_ops, corr_ops)
+    if wanted(4):
+        phase_end_to_end(torch, MVTracker, random_state_dict, make_scene, knn_ops)
+    if wanted(5):
+        training = phase_train_path(torch, smi, MVTracker, random_state_dict, make_scene, knn_ops, corr_ops)
+    if wanted(6):
+        phase_train_end_to_end(torch, MVTracker, random_state_dict, make_scene, corr_ops)
+    if wanted(7) or wanted(8):
+        large, cloud = phase_large_cloud(torch, smi, MVTracker, random_state_dict, make_scene, knn_ops, corr_ops)
+        direct = phase_direct_knn(torch, smi, knn_ops, cloud)
+    if wanted(9):
+        evaluation = phase_evaluation(torch, smi, knn_ops, corr_ops, cli.release)
+    if wanted(10):
+        t0 = time.perf_counter()
+        options = phase_options(torch, smi, knn_ops, corr_ops, cli.release)
+        log(f"phase 10 (options, warm start, config CLIs) took {time.perf_counter() - t0:.1f} s [{smi}]")
+    if only is not None:
+        log(f"partial run of phases {sorted(only)} passed; no kernels line and no result line")
+        return 0
 
     # Each path was driven with the counts at 0 just before it; every kernel
     # of a path must have been launched in that path's run.
     paths = {"serving": serving, "training": training, "large_cloud": large, "direct_knn": direct,
-             "evaluation": evaluation}
+             "evaluation": evaluation, **options}
     for path, counts in paths.items():
         idle = [key for key, count in counts.items() if count == 0]
         if idle:
@@ -1293,8 +1853,8 @@ def main() -> int:
     log("ms, plain_ms, bound_ms: sums over the path shapes of one flagship forward (knn, corr_select), of one "
         "train step's backward (corr_select_backward), of one large-cloud request (knn_tiled) or of one direct call "
         f"(knn_exact); launches: the 3 requests of the serving path, the {TRAIN_STEPS} steps of the training path, "
-        f"the {LARGE_REQUESTS} requests of the large-cloud path, the 3 calls of the direct path and the 16 requests "
-        "of the release protocol (evaluation)")
+        f"the {LARGE_REQUESTS} requests of the large-cloud path, the 3 calls of the direct path, the 16 requests "
+        "of the release protocol (evaluation) and the paths of phase 10 (options_*, config_*, serving_cli)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

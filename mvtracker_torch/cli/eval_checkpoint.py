@@ -108,12 +108,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--interp", type=str, nargs="+", default=["0"],
                         help="input resize sweep: square px ('192') or HxW ('384x512'); 0 = native")
     parser.add_argument("--vis_geom", action="store_true")
-    parser.add_argument("--knn_reuse", action="store_true", help="not ported: the model raises")
+    parser.add_argument("--knn_reuse", action="store_true", help="one kNN per window, reused by every iteration")
     parser.add_argument("--vis_head_hidden", type=int, default=0)
     parser.add_argument("--fp32", action="store_true", help="float32 compute (bf16 is the serving path)")
-    parser.add_argument("--corr_k0", type=int, default=0, help="not ported: any value but 0 raises")
-    parser.add_argument("--global_match", action="store_true", help="not ported: the model raises")
-    parser.add_argument("--chain_velocity", type=float, default=0.0, help="not ported: any value but 0 raises")
+    parser.add_argument("--corr_k0", type=int, default=0, help="neighbours at the finest level (0: uniform k)")
+    parser.add_argument("--global_match", action="store_true", help="global soft-match window init")
+    parser.add_argument("--chain_velocity", type=float, default=0.0,
+                        help="constant-velocity init of a chained window's new frames (0: static copy)")
     parser.add_argument("--thresholds", type=float, nargs="+", default=[0.02, 0.05, 0.1, 0.15, 0.2, 0.3, 0.5])
     parser.add_argument("--step", type=int, default=0, help="orbax checkpoint steps are not ported; must stay 0")
     parser.add_argument("--params_msgpack", default="", help="flax msgpack params file to evaluate")

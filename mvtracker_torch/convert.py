@@ -5,8 +5,10 @@
   `release/mvtracker_medium_synth.msgpack`) into nested dicts of numpy
   arrays, with a msgpack decoder of its own: neither `msgpack` nor `flax`
   is needed. bf16 leaves come back as fp32, widened exactly.
-- `load_release(path, model)`: that file into `model`, strictly: any leaf
-  missing, extra or of another shape raises and is named.
+- `read_flax_params(path)`: such a file as the port's state dict, with the
+  leaves no parameter reads; `load_release(path, model)`: that file into
+  `model`, strictly: any leaf missing, extra or of another shape raises and
+  is named.
 - `params_from_flax(params)`: the JAX package's MVTracker params (nested
   dicts of numpy arrays, with or without the outer "params" key) -> a
   state dict for `mvtracker_torch.models.mvtracker.MVTracker`. The port's
@@ -14,6 +16,9 @@
   `convert_reference_state_dict` maps the result straight back.
   The mapping is a fixed re-layout, so it carries any tree of that
   structure: a gradient tree, or AdamW's `mu` and `nu`.
+- `point_transformer_from_flax(params)`: the same for the point
+  transformer alone (`params_from_flax` maps it inside a tracker's tree,
+  under "cloud_backbone").
 - `opt_state_from_optax(opt_state)`: the optax state of the JAX package's
   optimizer -> the state of `mvtracker_torch.training.step.Optimizer`.
 - `random_state_dict(model, seed)`: seeded numpy weights with the
@@ -26,6 +31,7 @@ Layouts: flax Conv (kh, kw, I, O) -> (O, I, kh, kw); flax Dense (I, O) ->
 
 from __future__ import annotations
 
+import logging
 import struct
 
 import numpy as np
@@ -221,21 +227,13 @@ def params_from_flax(params) -> dict[str, torch.Tensor]:
     uf = p["updateformer"]
     sd.update(_dense(uf["input_transform"], "updateformer.input_transform"))
     sd["updateformer.virual_tracks"] = np.asarray(uf["virtual_tracks"])
-    if "layers" in uf:  # 1:1 interleave, depth stacked on axis 0
-        depth = np.asarray(uf["layers"]["time"]["mlp"]["fc1"]["kernel"]).shape[0]
-        for i in range(depth):
-            layer = _unstack(uf["layers"], i)
-            sd.update(_attn_block(layer["time"], f"updateformer.time_blocks.{i}"))
-            sd.update(_space_blocks(layer, i))
-    else:
-        i = 0
-        while f"time_{i}" in uf:
-            sd.update(_attn_block(uf[f"time_{i}"], f"updateformer.time_blocks.{i}"))
-            i += 1
-        j = 0
-        while f"sv2p_{j}" in uf:
-            sd.update(_space_blocks({k: uf[f"{k}_{j}"] for k in ("sv2p", "svirt", "sp2v")}, j))
-            j += 1
+    # 1:1 interleave, depth stacked on axis 0 (`migrate_updateformer_layout`
+    # brings older files to this layout)
+    depth = np.asarray(uf["layers"]["time"]["mlp"]["fc1"]["kernel"]).shape[0]
+    for i in range(depth):
+        layer = _unstack(uf["layers"], i)
+        sd.update(_attn_block(layer["time"], f"updateformer.time_blocks.{i}"))
+        sd.update(_space_blocks(layer, i))
     for fi, ti in ((0, 0), (1, 2), (2, 4)):
         sd.update(_dense(uf[f"flow_head_{fi}"], f"updateformer.flow_head.{ti}"))
 
@@ -244,6 +242,25 @@ def params_from_flax(params) -> dict[str, torch.Tensor]:
     if "vis_hidden" in p:
         sd.update(_dense(p["vis_hidden"], "vis_hidden"))
     sd.update(_dense(p["vis_predictor"], "vis_predictor.0"))
+    if "cloud_backbone" in p:
+        sd.update(_point_transformer(p["cloud_backbone"], "cloud_backbone."))
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def _point_transformer(p, prefix):
+    sd = _dense(p["proj_in"], f"{prefix}proj_in")
+    d = 0
+    while f"block_{d}" in p:
+        sd.update(_attn_block(p[f"block_{d}"], f"{prefix}blocks.{d}"))
+        d += 1
+    sd.update(_dense(p["proj_out"], f"{prefix}proj_out"))
+    return sd
+
+
+def point_transformer_from_flax(params) -> dict[str, torch.Tensor]:
+    """The JAX package's `SerializedPointTransformer` params -> a state dict
+    for `mvtracker_torch.models.point_transformer.SerializedPointTransformer`."""
+    sd = _point_transformer(params.get("params", params), "")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
@@ -281,6 +298,42 @@ def _leaf_paths(tree, path=""):
             yield sub
 
 
+def migrate_updateformer_layout(tree: dict) -> dict:
+    """Stack a flax file's unrolled update-transformer blocks (time_i,
+    sv2p_i, svirt_i, sp2v_i, from before the JAX package scanned its
+    layers) into the scanned "layers" layout that `params_from_flax` reads;
+    other trees are returned as they are."""
+    uf = tree.get("params", tree).get("updateformer")
+    if not isinstance(uf, dict) or "layers" in uf or "time_0" not in uf:
+        return tree
+    depth = len([k for k in uf if k.startswith("time_")])
+
+    def stack(trees):
+        return {
+            k: stack([t[k] for t in trees]) if isinstance(v, dict) else np.stack([np.asarray(t[k]) for t in trees])
+            for k, v in trees[0].items()
+        }
+
+    uf["layers"] = stack([{name: uf.pop(f"{name}_{i}") for name in ("time", "sv2p", "svirt", "sp2v")}
+                          for i in range(depth)])
+    logging.info("warm-start: migrated %d unrolled updateformer blocks to the scanned layout", depth)
+    return tree
+
+
+def read_flax_params(path: str) -> tuple[dict[str, torch.Tensor], list[str]]:
+    """A flax msgpack params file -> (the port's state dict, the paths of the
+    file's leaves that no parameter reads), the update-transformer layout
+    migrated first. A tree that lacks a part of the layout raises
+    ValueError."""
+    tree = migrate_updateformer_layout(load_flax_msgpack(path))
+    seen: set = set()
+    try:
+        sd = params_from_flax(_Recorder(tree, seen))
+    except KeyError as e:
+        raise ValueError(f"{path}: the params tree lacks {e} that the model's layout needs") from None
+    return sd, sorted(set(_leaf_paths(tree)) - seen)
+
+
 def load_release(path: str, model: nn.Module) -> nn.Module:
     """Load a flax msgpack params file into `model` strictly, with the
     meaning of the JAX package's `Trainer.warm_start(strict=True)`: a leaf of
@@ -289,14 +342,8 @@ def load_release(path: str, model: nn.Module) -> nn.Module:
     built with other options than the file's never runs on half its
     weights. Values are cast to the model's parameter dtype. Returns
     `model`."""
-    tree = load_flax_msgpack(path)
-    seen: set = set()
-    try:
-        sd = params_from_flax(_Recorder(tree, seen))
-    except KeyError as e:
-        raise ValueError(f"{path}: the params tree lacks {e} that the model's layout needs") from None
+    sd, unread = read_flax_params(path)
     want = model.state_dict()
-    unread = sorted(set(_leaf_paths(tree)) - seen)
     missing = sorted(set(want) - set(sd))
     extra = sorted(set(sd) - set(want))
     wrong = sorted(
@@ -351,8 +398,9 @@ def _truncated_normal(rng, shape, std):
 def random_state_dict(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
     """Seeded numpy weights for every tensor of `model.state_dict()`, drawn
     from the distributions flax initializes the JAX MVTracker with:
-    convs kaiming-normal (fan out), attention and MLP denses xavier-uniform,
-    the flow head truncated-normal (std 0.001), other denses lecun-normal,
+    convs kaiming-normal (fan out), attention and MLP denses (the update
+    transformer's and the point transformer's) xavier-uniform, the flow head
+    truncated-normal (std 0.001), other denses lecun-normal,
     virtual tracks standard normal, norms one/zero, biases zero."""
     rng = np.random.default_rng(seed)
     out = {}
@@ -369,7 +417,7 @@ def random_state_dict(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
             w = rng.standard_normal(shape) * np.sqrt(2.0 / fan_out)
         elif "flow_head" in name:
             w = _truncated_normal(rng, shape, 0.001)
-        elif name.startswith("updateformer."):
+        elif name.startswith(("updateformer.", "cloud_backbone.blocks.")):
             limit = np.sqrt(6.0 / (shape[0] + shape[1]))
             w = rng.uniform(-limit, limit, size=shape)
         else:

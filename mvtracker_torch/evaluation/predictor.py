@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from mvtracker_torch.device import resolve_device
+from mvtracker_torch.models.mvtracker import consume_stats
 from mvtracker_torch.utils import geometry as geo
 
 
@@ -117,8 +118,6 @@ class EvaluationPredictor:
         chunk_frames: Optional[int] = None,
         device=None,
     ):
-        if consume_model_stats:
-            raise NotImplementedError("consume_model_stats needs MVTracker(collect_stats=True), which is not ported yet")
         self.model = model
         self.interp_shape = interp_shape
         self.visibility_threshold = visibility_threshold
@@ -129,6 +128,14 @@ class EvaluationPredictor:
         self.single_point = single_point
         self.local_grid_size = local_grid_size
         self.local_extent = local_extent
+        # The model's kNN statistics (a model built with collect_stats=True):
+        # after each call `last_model_stats` holds the rows of
+        # `models.mvtracker.consume_stats` of its last forward, a list of
+        # dicts (the JAX predictor keeps a pandas table of the same rows).
+        if consume_model_stats and not getattr(model, "collect_stats", False):
+            raise ValueError("consume_model_stats needs a model built with collect_stats=True")
+        self.consume_model_stats = consume_model_stats
+        self.last_model_stats = None
         # Temporal chunking for long videos (reference demo, `demo.py:694-880`):
         # segments of `chunk_frames` frames overlapping by one frame; None (or
         # any value < 2) disables.
@@ -157,6 +164,8 @@ class EvaluationPredictor:
         model = self.model
         if isinstance(model, nn.Module):
             out = model(rgbs, depths, queries, intrs, extrs, iters=self.n_iters)
+            if self.consume_model_stats:
+                self.last_model_stats = consume_stats(out["knn_stats"])
         elif getattr(model, "jit_compatible", True):
             out = model(rgbs, depths, queries, intrs, extrs)
         else:  # host-side baselines take and give numpy

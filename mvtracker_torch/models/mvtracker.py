@@ -28,11 +28,18 @@ encoder and the transformer run bf16 products with fp32 parameters, the
 softmax runs in fp32, the cloud features are stored bf16 and the
 correlation streams bf16; geometry, kNN and the carried coords and track
 features stay fp32.
+
+Options of the JAX module, all off by default (reference behaviour):
+`corr_neighbors_per_level`, `corr_knn_reuse`, `corr_filter_invalid_depth`,
+`global_match_init`, `chain_velocity`, `normalize_scene_in_fwd_pass`,
+`use_point_transformer` and `collect_stats`. `knn_mesh` (a sharded kNN) and
+`support_memory_tokens` (the LoFTR memory) are not ported and raise.
 """
 
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,9 +47,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from mvtracker_torch.device import resolve_device
+from mvtracker_torch.device import fp32_precision, resolve_device
 from mvtracker_torch.models.encoder import BasicEncoder
 from mvtracker_torch.models.layers import LayerNorm, Linear
+from mvtracker_torch.models.point_transformer import SerializedPointTransformer
 from mvtracker_torch.models.updateformer import EfficientUpdateFormer
 from mvtracker_torch.ops import corr as corr_ops
 from mvtracker_torch.ops import knn as knn_ops
@@ -52,21 +60,14 @@ from mvtracker_torch.utils import geometry as geo
 # Options of the JAX module that this port does not implement yet, with the
 # value that leaves them off. Setting any other value raises.
 _NOT_PORTED = {
-    "corr_knn_reuse": False,
-    "corr_filter_invalid_depth": False,
-    "global_match_init": False,
-    "chain_velocity": 0.0,
-    "normalize_scene_in_fwd_pass": False,
-    "use_point_transformer": False,
     "knn_mesh": None,
-    "collect_stats": False,
     "support_memory_tokens": 0,
-    "corr_neighbors_per_level": None,
 }
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 SMALL_LEVEL_POINTS = 1024  # levels at most this size share one kNN call
+SENTINEL = 1e9  # coordinate of padding and filtered points in a kNN reference cloud
 # Clearance tolerances of the visibility head's z-test features (the JAX
 # module's `vis_geom_taus` default, the only value its checkpoints use).
 VIS_GEOM_TAUS = (0.05, 0.2, 1.0)
@@ -76,6 +77,66 @@ def window_starts(num_frames: int, window_len: int) -> list[int]:
     """Sliding-window start frames relative to the anchor, hop S/2."""
     hop = window_len // 2
     return list(range(0, max(num_frames - hop, 1), hop))
+
+
+def compute_scene_normalization(depths, extrs, intrs, max_depth: float = 24.0, stat_stride: int = 4):
+    """The scene transform (scale, R, t) of `normalize_scene_in_fwd_pass`:
+    the first frame's depth of every view on a grid of stride
+    `stat_stride`, unprojected and expressed in the first camera's frame;
+    scale = 1 / the mean distance of the points with a positive depth,
+    (R, t) = the first camera's pose, t scaled.
+
+    The depths are first raised to at least `max_depth`, the reference's
+    clamp as it executes (it raises near depths rather than capping far
+    ones); the released checkpoint was produced under it, so it stays.
+
+    depths [V, T, H, W], extrs [V, T, 3, 4], intrs [V, T, 3, 3]."""
+    s = stat_stride
+    d0_raw = depths[:, 0, ::s, ::s]
+    d0 = torch.clamp(d0_raw, min=max_depth)
+    world = geo.unproject_depth_to_world(
+        d0, geo.invert_intrinsics(intrs[:, 0]), geo.invert_extrinsics(extrs[:, 0]), stride=s
+    )
+    e0 = extrs[0, 0]
+    in_first = torch.einsum("ij,nj->ni", e0, geo.to_homogeneous(world.reshape(-1, 3)))
+    valid = (d0_raw > 0).reshape(-1).to(in_first.dtype)
+    avg = (torch.linalg.norm(in_first, dim=-1) * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    scale = 1.0 / avg
+    return scale, e0[:, :3], e0[:, 3] * scale
+
+
+def apply_scene_transform(scale, rot, trans, xyz):
+    """x' = t + R (s x) for points [..., 3]."""
+    return torch.einsum("ij,...j->...i", rot, xyz * scale) + trans
+
+
+def invert_scene_transform(scale, rot, trans, xyz):
+    """The inverse of `apply_scene_transform`."""
+    return torch.einsum("ji,...j->...i", rot, xyz - trans) / scale
+
+
+def consume_stats(stats: dict) -> list[dict]:
+    """The kNN statistics of a forward with `collect_stats=True` (its
+    output's "knn_stats": {"knn_dists_lvl{L}": [W, iters, k_L]}) as rows
+    {window, iteration, level, k, mean_dist}, sorted by level, window,
+    iteration and k.
+
+    These are the rows and the order of the JAX package's `consume_stats`,
+    which returns them as a pandas DataFrame; the port returns a list of
+    dicts, so that it needs no pandas (`pandas.DataFrame(rows)` gives the
+    table). The port runs only the windows the reference runs, so when the
+    earliest query starts after frame 0 it has no rows for the JAX module's
+    extra, masked-out windows."""
+    rows = []
+    for name in sorted(stats, key=lambda n: int(n[len("knn_dists_lvl"):])):
+        lvl = int(name[len("knn_dists_lvl"):])
+        arr = np.asarray(stats[name].detach().float().cpu() if torch.is_tensor(stats[name]) else stats[name])
+        for wi in range(arr.shape[0]):
+            for ii in range(arr.shape[1]):
+                for kk in range(arr.shape[2]):
+                    rows.append({"window": wi, "iteration": ii, "level": lvl, "k": kk,
+                                 "mean_dist": float(arr[wi, ii, kk])})
+    return rows
 
 
 class MVTracker(nn.Module):
@@ -97,14 +158,25 @@ class MVTracker(nn.Module):
         corr_n_groups: int = 1,
         corr_n_levels: int = 4,
         corr_neighbors: int = 16,
+        corr_neighbors_per_level: Optional[tuple] = None,
         corr_add_neighbor_offset: bool = True,
         corr_add_neighbor_xyz: bool = False,
+        global_match_init: bool = False,
+        global_match_level: int = 1,
+        global_match_temp: float = 10.0,
+        chain_velocity: float = 0.0,
+        corr_knn_reuse: bool = False,
+        corr_filter_invalid_depth: bool = False,
         flow_embed_dim: int = 64,
         vis_geom_features: bool = False,
         vis_head_hidden: int = 0,
         compute_dtype: str = "float32",
+        use_point_transformer: bool = False,
+        point_transformer_depth: int = 2,
+        normalize_scene_in_fwd_pass: bool = False,
         remat: bool = False,
         remat_encoder: bool = True,
+        collect_stats: bool = False,
         knn_backend: str = "auto",
         device="cuda",
         **not_ported,
@@ -124,9 +196,39 @@ class MVTracker(nn.Module):
         self.corr_n_groups = corr_n_groups
         self.corr_n_levels = corr_n_levels
         self.corr_neighbors = corr_neighbors
+        # Neighbours per level, fine to coarse (None: `corr_neighbors` at
+        # every level). Widening the fine level alone restores the coverage
+        # a dense cloud's k neighbours lose; it widens the update
+        # transformer's input (`Trainer.warm_start` migrates uniform-k
+        # weights with zero rows for the added ranks).
+        if corr_neighbors_per_level is not None:
+            corr_neighbors_per_level = tuple(int(k) for k in corr_neighbors_per_level)
+            if len(corr_neighbors_per_level) != corr_n_levels:
+                raise ValueError(f"corr_neighbors_per_level needs {corr_n_levels} entries, got {corr_neighbors_per_level}")
+        self.corr_neighbors_per_level = corr_neighbors_per_level
         self.corr_add_neighbor_offset = corr_add_neighbor_offset
         self.corr_add_neighbor_xyz = corr_add_neighbor_xyz
         self.flow_embed_dim = flow_embed_dim
+        # Window initialisation: a soft match of each track's feature over
+        # the cloud of level `global_match_level` per frame (frames not
+        # chained from the previous window; stop-gradient), and a
+        # first-order extrapolation of a chained window's new frames.
+        self.global_match_init = global_match_init
+        self.global_match_level = global_match_level
+        self.global_match_temp = global_match_temp
+        self.chain_velocity = chain_velocity
+        # One kNN per window at the window's initial coords, reused by every
+        # iteration (approximate; the reference searches every iteration).
+        self.corr_knn_reuse = corr_knn_reuse
+        # Zero-depth points move to SENTINEL in the kNN reference clouds; a
+        # pick among them falls back to the query's nearest valid neighbour.
+        self.corr_filter_invalid_depth = corr_filter_invalid_depth
+        # Rigid centring and rescaling of the scene before tracking, undone
+        # on the outputs (`compute_scene_normalization`).
+        self.normalize_scene_in_fwd_pass = normalize_scene_in_fwd_pass
+        # Mean neighbour distance per (window, iteration, level, rank), in
+        # the output's "knn_stats" (`consume_stats`).
+        self.collect_stats = collect_stats
         # Visibility head options (both off = the reference's single Linear
         # on the track features): per-view depth z-test features of the
         # final coords, and one exact-GELU hidden layer.
@@ -165,6 +267,12 @@ class MVTracker(nn.Module):
             self.vis_hidden = Linear(vis_in, vis_head_hidden, device=device)  # flax's name
             vis_in = vis_head_hidden
         self.vis_predictor = nn.Sequential(Linear(vis_in, 1, device=device))
+        self.use_point_transformer = use_point_transformer
+        if use_point_transformer:
+            # Serialized attention over the level-0 cloud of every frame.
+            self.cloud_backbone = SerializedPointTransformer(
+                fmaps_dim, dim=fmaps_dim, depth=point_transformer_depth, dtype=self.dtype, device=device
+            )
 
     @property
     def device(self) -> torch.device:
@@ -174,11 +282,18 @@ class MVTracker(nn.Module):
     def corr_feat_width(self) -> int:
         return self.corr_n_groups + 3 * int(self.corr_add_neighbor_offset) + 3 * int(self.corr_add_neighbor_xyz)
 
+    def corr_k(self, lvl: int) -> int:
+        """Neighbour count at pyramid level `lvl` (0 = finest)."""
+        if self.corr_neighbors_per_level is not None:
+            return self.corr_neighbors_per_level[lvl]
+        return self.corr_neighbors
+
     @property
     def updateformer_input_dim(self) -> int:
+        """[flow embedding | per level, k_l neighbours x F | track features | mask, vis]."""
         return (
             (self.flow_embed_dim + 1) * 3
-            + self.corr_n_levels * self.corr_neighbors * self.corr_feat_width
+            + sum(self.corr_k(lvl) for lvl in range(self.corr_n_levels)) * self.corr_feat_width
             + self.fmaps_dim
             + 2
         )
@@ -203,21 +318,27 @@ class MVTracker(nn.Module):
         return module(*args, **kwargs)
 
     def _build_context(self, fmaps, depths_strided, intrs, extrs):
-        """Per-level fused clouds: list of (xyz [T, P_l, 3], fvec [T, P_l, C])."""
+        """Per-level fused clouds: list of (xyz [T, P_l, 3], fvec [T, P_l, C],
+        valid [T, P_l] bool or None). `valid` (depth > 0) is kept only with
+        `corr_filter_invalid_depth`; with `use_point_transformer` the level-0
+        features are refined per frame."""
         clouds = []
         for lvl in range(self.corr_n_levels):
-            xyz, fvec = geo.init_pointcloud_from_rgbd(
-                fmaps[None], depths_strided[None], intrs[None], extrs[None], stride=self.stride, level=lvl
+            xyz, fvec, *valid = geo.init_pointcloud_from_rgbd(
+                fmaps[None], depths_strided[None], intrs[None], extrs[None], stride=self.stride, level=lvl,
+                return_validity_mask=self.corr_filter_invalid_depth,
             )
+            if lvl == 0 and self.use_point_transformer:
+                fvec = self.cloud_backbone(xyz, fvec)
             if self.dtype is not None:
                 fvec = fvec.to(self.dtype)  # the correlation streams bf16
-            clouds.append((xyz.contiguous(), fvec.contiguous()))
+            clouds.append((xyz.contiguous(), fvec.contiguous(), valid[0] if valid else None))
         return clouds
 
     def _feat_init(self, context, query_t, query_xyz):
         """Per-query feature: the k=1 neighbour in the level-0 cloud of the
         query's start frame (clamped into the video). Returns [N, C]."""
-        cloud0_xyz, cloud0_fvec = context[0]
+        cloud0_xyz, cloud0_fvec, _ = context[0]
         t = cloud0_xyz.shape[0]
         n = query_xyz.shape[0]
         queries = query_xyz[None].expand(t, n, 3)
@@ -227,46 +348,67 @@ class MVTracker(nn.Module):
         return fvec[qt, torch.arange(n, device=fvec.device)]
 
     def _corr_knn(self, context_w, coords):
-        """kNN indices of the track coords into every level's cloud:
-        {lvl: [S, N, k]}.
+        """kNN of the track coords into every level's cloud: ({lvl: dists
+        [S, N, k_l]}, {lvl: idx [S, N, k_l]}).
 
-        Levels of at most SMALL_LEVEL_POINTS points are padded with 1e9
+        Levels of at most SMALL_LEVEL_POINTS points are padded with SENTINEL
         points (which never enter a top-k while a level holds k real points)
-        and searched in one call.
+        and searched in one call at the largest k among them; each level
+        keeps its sorted prefix. With `corr_filter_invalid_depth` the
+        invalid points sit at SENTINEL too, a pick beyond 1e8 falls back to
+        the query's rank 0, and indices are clamped into the level (a frame
+        with no valid point gives finite, meaningless features).
         """
         s = coords.shape[0]
-        k = self.corr_neighbors
         levels = range(self.corr_n_levels)
+
+        def knn_ref(lvl):
+            xyz_l, _, valid_l = context_w[lvl]
+            return xyz_l if valid_l is None else torch.where(valid_l[..., None], xyz_l, SENTINEL)
+
         small = [lvl for lvl in levels if context_w[lvl][0].shape[1] <= SMALL_LEVEL_POINTS]
         batched = len(small) > 1
-        idx = {}
+        dists, idx = {}, {}
         for lvl in levels:
             if not (batched and lvl in small):
-                idx[lvl] = knn_ops.knn(context_w[lvl][0], coords, k, backend=self.knn_backend)[1]
+                dists[lvl], idx[lvl] = knn_ops.knn(knn_ref(lvl), coords, self.corr_k(lvl), backend=self.knn_backend)
         if batched:
             pmax = max(context_w[lvl][0].shape[1] for lvl in small)
+            kmax = max(self.corr_k(lvl) for lvl in small)
             refs = torch.cat(
-                [F.pad(context_w[lvl][0], (0, 0, 0, pmax - context_w[lvl][0].shape[1]), value=1e9) for lvl in small]
+                [F.pad(knn_ref(lvl), (0, 0, 0, pmax - context_w[lvl][0].shape[1]), value=SENTINEL) for lvl in small]
             )
-            i_all = knn_ops.knn(refs, coords.repeat(len(small), 1, 1), k, backend=self.knn_backend)[1]
+            d_all, i_all = knn_ops.knn(refs, coords.repeat(len(small), 1, 1), kmax, backend=self.knn_backend)
             for j, lvl in enumerate(small):
-                idx[lvl] = i_all[j * s : (j + 1) * s]
-        return idx
+                k = self.corr_k(lvl)
+                dists[lvl], idx[lvl] = d_all[j * s : (j + 1) * s, :, :k], i_all[j * s : (j + 1) * s, :, :k]
+        if self.corr_filter_invalid_depth:
+            for lvl in levels:
+                d, i = dists[lvl], idx[lvl]
+                bad = d > 1e8
+                idx[lvl] = torch.clamp(torch.where(bad, i[..., :1], i), max=context_w[lvl][0].shape[1] - 1)
+                dists[lvl] = torch.where(bad, d[..., :1], d)
+        return dists, idx
 
-    def _corr_features(self, context_w, coords, ffeats):
-        """Correlation features per (frame, track): [S, N, levels * k * F]."""
+    def _corr_features(self, context_w, coords, ffeats, knn_cache=None, stats=None):
+        """Correlation features per (frame, track): [S, N, sum_l k_l * F].
+        `knn_cache`: the (dists, idx) of `_corr_knn` to use instead of a
+        search (`corr_knn_reuse`); `stats`: a dict that collects each level's
+        mean neighbour distance per rank, {lvl: [tensor [k_l], ...]}."""
         s, n, _ = coords.shape
-        k = self.corr_neighbors
-        knn_idx = self._corr_knn(context_w, coords)
+        knn_dists, knn_idx = knn_cache if knn_cache is not None else self._corr_knn(context_w, coords)
         fcorrs = []
         for lvl in range(self.corr_n_levels):
-            xyz_l, fvec_l = context_w[lvl]
-            idx = knn_idx[lvl]
-            p_l = xyz_l.shape[1]
+            xyz_l, fvec_l, _ = context_w[lvl]
+            dists, idx = knn_dists[lvl], knn_idx[lvl]
+            k, p_l = self.corr_k(lvl), xyz_l.shape[1]
             if k > p_l:
                 # Fewer points than neighbours: ranks >= P_l are padding;
                 # wrap the ranks so real neighbours repeat instead.
-                idx = idx[..., torch.arange(k, device=idx.device) % p_l]
+                wrap = torch.arange(k, device=idx.device) % p_l
+                dists, idx = dists[..., wrap], idx[..., wrap]
+            if stats is not None:
+                stats.setdefault(lvl, []).append(dists.mean(dim=(0, 1)))
             fc = corr_ops.corr_sample(
                 xyz_l,
                 fvec_l,
@@ -327,12 +469,13 @@ class MVTracker(nn.Module):
         return self.vis_predictor(x)[..., 0]
 
     def forward_iteration(
-        self, context_w, coords_init, vis_init, track_mask, active, feat_init, iters: int, geom_w=None
+        self, context_w, coords_init, vis_init, track_mask, active, feat_init, iters: int, geom_w=None, stats=None
     ):
         """Iterative refinement within one window. Returns (list of coords
         [S, N, 3] per iteration, vis logits [S, N]). `geom_w` is the window's
         (full-resolution depths, intrs, extrs), needed with
-        `vis_geom_features`.
+        `vis_geom_features`; `stats` collects the kNN statistics
+        (`_corr_features`).
 
         As in the JAX module, `pos_embed` sees the undetached `coords_init`
         (so a chained window sends gradient to the previous one through it
@@ -350,10 +493,13 @@ class MVTracker(nn.Module):
         coords = coords_init
         ffeats = feat_init[None].expand(s, n, -1).float()
         mask_and_vis = torch.stack([track_mask, vis_init], dim=-1)
+        # With reuse, one search at the initial coords (the first
+        # iteration's own search) serves every iteration.
+        knn_cache = self._corr_knn(context_w, coords_init.detach()) if self.corr_knn_reuse else None
         preds = []
         for _ in range(iters):
             coords = coords.detach()
-            fcorrs = self._corr_features(context_w, coords, ffeats)
+            fcorrs = self._corr_features(context_w, coords, ffeats, knn_cache, stats)
             flows_emb = emb.coord_embedding_3d(coords - coords[0:1], self.flow_embed_dim)
             x = torch.cat([flows_emb, fcorrs, ffeats, mask_and_vis], dim=-1)
             x = x + pos_embed[None] + times_embed[:, None]
@@ -381,9 +527,28 @@ class MVTracker(nn.Module):
         [T, N], "feat_init" [N, C]}. Serving (`is_train=False`) records no
         autograd graph. `is_train=True` records one and adds "train_data":
         coord_predictions [W, iters, S, N, 3], vis_predictions [W, S, N]
-        (logits), window_starts [W], window_valid [W], window_active [W, N]."""
+        (logits), window_starts [W], window_valid [W], window_active [W, N].
+        With `collect_stats` the output also holds "knn_stats":
+        {"knn_dists_lvl{L}": [W, iters, k_L]}, the mean neighbour distance
+        per rank over each window's (frame, track) grid (`consume_stats`)."""
         with contextlib.nullcontext() if is_train else torch.no_grad():
             return self._forward(rgbs, depths, query_points, intrs, extrs, iters, is_train)
+
+    def _global_match(self, context_w, feat_init, query_xyz, query_t, frame_idx):
+        """Window init by soft match: each track's feature against the cloud
+        of level `global_match_level` per frame, softmax(<f, fvec_p> * temp /
+        sqrt(C)) over the points, the weighted mean of their xyz; the
+        query's own frame stays at the query. fp32 with TF32 off, no
+        gradient. Returns [S, N, 3]."""
+        lvl = min(self.global_match_level, self.corr_n_levels - 1)
+        xyz_m, fvec_m, _ = context_w[lvl]
+        with torch.no_grad(), fp32_precision(exact=True):
+            f = feat_init.detach().float()
+            corr = torch.einsum("nc,spc->snp", f, fvec_m.float()) / float(np.sqrt(f.shape[-1]))
+            weights = torch.softmax(corr * self.global_match_temp, dim=-1)
+            match_xyz = torch.einsum("snp,spd->snd", weights, xyz_m.float())
+        at_query = frame_idx[:, None] == query_t[None, :]
+        return torch.where(at_query[..., None], query_xyz[None].expand_as(match_xyz), match_xyz)
 
     def _forward(self, rgbs, depths, query_points, intrs, extrs, iters: int, is_train: bool) -> dict:
         rgbs, depths, query_points, intrs, extrs = map(self._as_input, (rgbs, depths, query_points, intrs, extrs))
@@ -396,6 +561,19 @@ class MVTracker(nn.Module):
         query_t = query_points[:, 0].long()  # truncates toward zero
         query_xyz = query_points[:, 1:].contiguous()
 
+        norm = None
+        if self.normalize_scene_in_fwd_pass:
+            # Centre the first camera and rescale the scene; the outputs are
+            # mapped back at the end. E' = [R_e R^T | s t_e - R_e R^T t]
+            # keeps E' T(x) = s E x, so every pixel projects as before.
+            norm = compute_scene_normalization(depths, extrs, intrs)
+            scale, rot, trans = norm
+            depths = depths * scale
+            r_new = torch.einsum("vtij,kj->vtik", extrs[..., :3], rot)
+            t_new = extrs[..., 3] * scale - torch.einsum("vtij,j->vti", r_new, trans)
+            extrs = torch.cat([r_new, t_new[..., None]], dim=-1)
+            query_xyz = apply_scene_transform(scale, rot, trans, query_xyz)
+
         fmaps = self.compute_fmaps(rgbs)
         depths_strided = depths[:, :, :: self.stride, :: self.stride]
         context = self._build_context(fmaps, depths_strided, intrs, extrs)
@@ -407,25 +585,38 @@ class MVTracker(nn.Module):
         n_wind = len(window_starts(t, s))
         n_exec = min(max((t - qt_min - 1) // hop, 1), n_wind)
 
+        stats = {} if self.collect_stats else None
         all_coords, all_vis, all_active, all_preds, starts = [], [], [], [], []
         for wi in range(n_exec):
             w_start = qt_min + wi * hop
             is_first = wi == 0
             frame_idx = torch.clamp(torch.arange(s, device=dev) + w_start, max=t - 1)
             active = query_t < w_start + s
-            context_w = [(xyz.index_select(0, frame_idx), fvec.index_select(0, frame_idx)) for xyz, fvec in context]
+            context_w = [
+                tuple(None if a is None else a.index_select(0, frame_idx) for a in level) for level in context
+            ]
             geom_w = None
             if self.vis_geom_features:
                 geom_w = tuple(a.index_select(1, frame_idx) for a in (depths, intrs, extrs))
 
-            coords_init = query_xyz[None].expand(s, n, 3)
+            if self.global_match_init:
+                coords_init = self._global_match(context_w, feat_init, query_xyz, query_t, frame_idx)
+            else:
+                coords_init = query_xyz[None].expand(s, n, 3)
             vis_init = torch.full((s, n), 10.0, device=dev)
             if not is_first:
                 # Tracks active in the previous window continue from its
-                # second half; the new frames repeat its last frame.
+                # second half. The new frames repeat its last frame, or with
+                # `chain_velocity` extrapolate its last displacement.
                 chained = query_t < w_start + (s - hop)
                 prev_tail, prev_vis_tail = all_coords[-1][hop:], all_vis[-1][hop:]
-                chained_coords = torch.cat([prev_tail, prev_tail[-1:].expand(s - hop, n, 3)])
+                if self.chain_velocity > 0.0 and hop >= 2:
+                    vel = (prev_tail[-1] - prev_tail[-2]) * self.chain_velocity
+                    steps = torch.arange(1, s - hop + 1, dtype=vel.dtype, device=dev)
+                    new_frames = prev_tail[-1][None] + steps[:, None, None] * vel[None]
+                else:
+                    new_frames = prev_tail[-1:].expand(s - hop, n, 3)
+                chained_coords = torch.cat([prev_tail, new_frames])
                 chained_vis = torch.cat([prev_vis_tail, prev_vis_tail[-1:].expand(s - hop, n)])
                 coords_init = torch.where(chained[None, :, None], chained_coords, coords_init)
                 vis_init = torch.where(chained[None, :], chained_vis, vis_init)
@@ -435,7 +626,7 @@ class MVTracker(nn.Module):
             track_mask = (frame_idx[:, None] >= cutoff[None, :]).float()
 
             preds, vis_logits = self.forward_iteration(
-                context_w, coords_init, vis_init, track_mask, active, feat_init, iters, geom_w
+                context_w, coords_init, vis_init, track_mask, active, feat_init, iters, geom_w, stats
             )
             all_coords.append(preds[-1])
             all_preds.append(preds)
@@ -456,7 +647,18 @@ class MVTracker(nn.Module):
         active_t = all_active[w_of_t] & (t_idx >= qt_min)[:, None]
         traj = torch.where(active_t[..., None], traj, torch.zeros_like(traj))
         vis = torch.where(active_t, vis, torch.zeros_like(vis))
+        coord_predictions = torch.stack([torch.stack(p) for p in all_preds]) if is_train else None
+        if norm is not None:
+            # Back to the input's world frame, the zeros of inactive entries
+            # included, as the JAX module maps them.
+            traj = invert_scene_transform(*norm, traj)
+            if is_train:
+                coord_predictions = invert_scene_transform(*norm, coord_predictions)
         out = {"traj": traj, "vis": vis, "feat_init": feat_init}
+        if stats is not None:
+            out["knn_stats"] = {
+                f"knn_dists_lvl{lvl}": torch.stack(vals).reshape(n_exec, iters, -1) for lvl, vals in stats.items()
+            }
         if is_train:
             # W counts the executed windows only, so `window_valid` is all
             # true. The JAX module stacks its static worst-case window count
@@ -464,11 +666,10 @@ class MVTracker(nn.Module):
             # mask gives 0) and the mean over windows divides by the number
             # of valid ones, so both give the same loss.
             out["train_data"] = {
-                "coord_predictions": torch.stack([torch.stack(p) for p in all_preds]),  # [W, iters, S, N, 3]
+                "coord_predictions": coord_predictions,  # [W, iters, S, N, 3]
                 "vis_predictions": all_vis,  # [W, S, N] logits
                 "window_starts": torch.tensor(starts, dtype=torch.int64, device=dev),  # [W]
                 "window_valid": torch.ones(n_exec, dtype=torch.bool, device=dev),  # [W]
                 "window_active": all_active,  # [W, N]
             }
         return out
-

@@ -157,13 +157,17 @@ def _launch_whole_cloud(name: str, entry: str, ref, query, k):
 
 def knn_cuda(ref: torch.Tensor, query: torch.Tensor, k: int):
     """The CUDA kernel `csrc/knn.cu` on CUDA tensors; same contract as
-    `knn_plain`. Adds one to `knn_cuda.launches` per kernel launch."""
+    `knn_plain`. Adds one to `knn_cuda.launches`, and to
+    `knn_cuda.launches_by_k[k]`, per kernel launch."""
     dist, idx, launched = _launch_whole_cloud("knn_cuda", "knn", ref, query, k)
     knn_cuda.launches += launched
+    if launched:
+        knn_cuda.launches_by_k[k] = knn_cuda.launches_by_k.get(k, 0) + 1
     return dist, idx
 
 
 knn_cuda.launches = 0
+knn_cuda.launches_by_k = {}
 
 
 def knn_exact_cuda(ref: torch.Tensor, query: torch.Tensor, k: int):

@@ -7,10 +7,6 @@ script cannot build a model that does not match its checkpoint.
 the narrow variants of the smoke runs and the synthetic-domain release
 (`release/mvtracker_medium_synth.msgpack` is `medium` with
 `vis_geom=True, vis_head_hidden=128`).
-
-Knobs the port does not implement yet (`corr_k0`, `chain_velocity`,
-`global_match`, `knn_reuse`) reach the model, which raises
-`NotImplementedError` for any value but the default.
 """
 
 from __future__ import annotations

@@ -13,12 +13,20 @@
   deviation beyond `reproj_guard_atol` warns and raises after
   `reproj_guard_patience` steps in a row;
 - crash forensics: on an exception the offending batch and a checkpoint are
-  written before the exception goes on.
+  written before the exception goes on;
+- warm start (`Trainer.warm_start`, `TrainConfig.warm_start_ckpt`) from a
+  flax msgpack params file or a torch `.pth`/`.pt` state dict, with the JAX
+  trainer's two migrations (the update transformer's unrolled pre-scan
+  layout, and a uniform-k input projection widened to
+  `corr_neighbors_per_level`), strict or with a non-strict fallback;
+- an evaluation hook (`eval_fn` every `eval_freq` steps) and a
+  static-pretrain iterator for the first `static_pretrain_steps` steps.
 
-Not ported yet: warm start from a weights file and its two layout
-migrations, the evaluation hook (`eval_fn`, `eval_freq`: evaluation itself
-is not ported), TensorBoard and W&B, the profiler window, the hang watchdog,
-the static-pretrain iterator, crash replay, and the device mesh.
+Not ported yet (ROADMAP item 5): TensorBoard and W&B, the profiler window,
+the hang watchdog, crash replay, and the device mesh. Their settings keep
+the JAX names; the port's defaults leave them off (`tensorboard` and
+`watchdog_timeout_s` are on by default in the JAX package), and turning one
+on raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -34,12 +42,15 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from mvtracker_torch import convert
 from mvtracker_torch.training import step as step_lib
 
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The trainer's settings; names and defaults are the JAX package's."""
+    """The trainer's settings; names, order and defaults are the JAX
+    package's, but for the settings the port does not implement, which are
+    off here (`_NOT_PORTED`)."""
 
     total_steps: int = 200_000
     lr: float = 5e-4
@@ -52,18 +63,42 @@ class TrainConfig:
     train_iters: int = 4
     warmup_steps: int = 100
     save_ckpt_freq: int = 500
+    eval_freq: int = 10_000  # `fit`'s eval_fn(state, step) runs every eval_freq steps
     telemetry_freq: int = 100
     seed: int = 0
     exp_dir: str = "experiments/default"
     adaptive_iters: bool = True
     keep_ckpts: int = 3
+    static_pretrain_steps: int = 0  # the first N steps draw from `fit`'s static_data_iter
+    tensorboard: bool = False  # not ported
+    watchdog_timeout_s: float = 0.0  # not ported
+    watchdog_exit: bool = False  # not ported
+    watchdog_first_deadline_s: float = 1800.0
     # Reprojection round-trip guard: warn per offending step, raise after
     # this many in a row. atol 0 disables.
     reproj_guard_atol: float = 1.0
     reproj_guard_patience: int = 5
+    wandb: bool = False  # not ported
+    wandb_project: str = "mvtracker_tpu"
+    profile_start_step: int = -1  # not ported
+    profile_n_steps: int = 3
+    # Weights to start from (a flax .msgpack or a torch .pth/.pt), applied
+    # non-strictly in `fit` when the experiment has no checkpoint yet. "" = none.
+    warm_start_ckpt: str = ""
     # Fetch the loss (a device synchronisation) only every N steps, so the
     # host can run ahead of the device; the guards then see every Nth step.
     sync_every: int = 1
+
+
+# Trainer settings of the JAX package that the port does not implement, with
+# the value that leaves each off.
+_NOT_PORTED = {
+    "tensorboard": False,
+    "wandb": False,
+    "profile_start_step": -1,
+    "watchdog_timeout_s": 0.0,
+    "watchdog_exit": False,
+}
 
 
 def augment_train_iters(step: int, cfg: TrainConfig, rng: np.random.Generator) -> int:
@@ -86,6 +121,11 @@ _CKPT_NAME = re.compile(r"step_(\d+)\.pt$")
 
 class Trainer:
     def __init__(self, model, cfg: TrainConfig):
+        for name, off in _NOT_PORTED.items():
+            if getattr(cfg, name) != off:
+                raise NotImplementedError(
+                    f"TrainConfig.{name}={getattr(cfg, name)!r} is not ported yet (ROADMAP item 5); leave it at {off!r}"
+                )
         self.model = model
         self.cfg = cfg
         self.optimizer = step_lib.make_optimizer(
@@ -140,6 +180,101 @@ class Trainer:
         logging.info("resumed from checkpoint step %d", latest)
         return state, latest
 
+    # -- warm start ----------------------------------------------------
+    def _migrate_corr_width(self, loaded: dict, current: dict) -> dict:
+        """Widen a uniform-k checkpoint's update-transformer input projection
+        to this model's `corr_neighbors_per_level`.
+
+        The input columns are [flow embedding | per level, k_l neighbours
+        x F features, neighbour-major | track features | mask, vis]
+        (`MVTracker.forward_iteration`). The columns of the ranks the old
+        checkpoint had move to their new places; those of added ranks are
+        zero, so the model computes what the old one did until training
+        uses them. Only a width difference that corr width explains is
+        migrated; anything else is left to the merge, which flags it."""
+        model = self.model
+        key = "updateformer.input_transform.weight"
+        if getattr(model, "corr_neighbors_per_level", None) is None or key not in loaded or key not in current:
+            return loaded
+        old = loaded[key]
+        d_old, d_new = old.shape[1], current[key].shape[1]
+        if d_old == d_new:
+            return loaded
+        fe = (model.flow_embed_dim + 1) * 3
+        f = model.corr_feat_width
+        levels = model.corr_n_levels
+        corr_old = d_old - fe - model.fmaps_dim - 2
+        if corr_old <= 0 or corr_old % (f * levels):
+            return loaded
+        k_old = corr_old // (f * levels)
+        new = torch.zeros((old.shape[0], d_new), dtype=old.dtype)
+        new[:, :fe] = old[:, :fe]
+        src = dst = fe
+        for lvl in range(levels):
+            k_new = model.corr_k(lvl)
+            ncopy = min(k_old, k_new) * f
+            new[:, dst : dst + ncopy] = old[:, src : src + ncopy]
+            src += k_old * f
+            dst += k_new * f
+        new[:, dst:] = old[:, src:]
+        loaded[key] = new
+        logging.info(
+            "warm-start: migrated input_transform %d -> %d columns (uniform k=%d -> per-level %s, new neighbour "
+            "columns zero-init)", d_old, d_new, k_old, tuple(model.corr_k(lvl) for lvl in range(levels)),
+        )
+        return loaded
+
+    def warm_start(self, state: step_lib.TrainState, path: str, strict: bool = False) -> step_lib.TrainState:
+        """Load model weights from a file into `state.model` before training.
+
+        `path`: a flax msgpack params file (bf16 leaves are widened, then
+        every value is cast to its parameter's dtype; an unrolled pre-scan
+        update transformer is stacked first, `convert.read_flax_params`), or
+        a `.pth`/`.pt` state dict of the reference model or of the port (the
+        same names; a training checkpoint's "model" entry is taken; read with
+        `torch.load(weights_only=True)`, so a file holding other Python
+        objects is refused). The corr-width migration runs on the loaded
+        state dict. Every leaf that matches a parameter by name and shape is
+        loaded; with a leaf skipped or a parameter left at its value, a
+        warning names each and the load goes on, or with `strict=True` a
+        ValueError is raised and nothing is loaded. The optimizer state is
+        left as it is."""
+        model = state.model
+        current = model.state_dict()
+        unread = []
+        if path.endswith((".pth", ".pt")):
+            ckpt = torch.load(path, map_location="cpu", weights_only=True)
+            if isinstance(ckpt, dict) and "model" in ckpt and not any(str(k).startswith("fnet") for k in ckpt):
+                ckpt = ckpt["model"]
+            loaded = {k: torch.as_tensor(v) for k, v in ckpt.items()}
+        else:
+            loaded, unread = convert.read_flax_params(path)
+        loaded = self._migrate_corr_width(loaded, current)
+
+        merged, skipped_keys = dict(current), list(unread)
+        used = 0
+        for k, v in loaded.items():
+            if k in current and tuple(current[k].shape) == tuple(v.shape):
+                merged[k] = v.to(current[k].dtype)
+                used += 1
+            else:
+                skipped_keys.append(k)
+        for k in skipped_keys:
+            logging.warning("warm-start: skipping %s %s", k, tuple(loaded[k].shape) if k in loaded else "(not a parameter)")
+        skipped, missing = len(skipped_keys), len(current) - used
+        if skipped or missing:
+            if strict:
+                missing_keys = sorted(set(current) - {k for k in loaded if k in current and k not in skipped_keys})
+                raise ValueError(
+                    f"strict warm-start from {path}: {skipped} leaves skipped {skipped_keys[:8]}, {missing} left at "
+                    f"init {missing_keys[:8]} — model config does not match the checkpoint"
+                )
+            logging.warning("warm-start non-strict: %d loaded, %d skipped, %d left at init", used, skipped, missing)
+        else:
+            logging.info("warm-start strict: all %d leaves loaded from %s", used, path)
+        model.load_state_dict(merged, strict=True)
+        return state
+
     # -- main loop -----------------------------------------------------
     def _get_step_fn(self, iters: int):
         if iters not in self._steps:
@@ -168,21 +303,29 @@ class Trainer:
         self,
         data_iter: Iterator[dict],
         state: Optional[step_lib.TrainState] = None,
+        eval_fn: Optional[Callable[[step_lib.TrainState, int], dict]] = None,
         max_steps: Optional[int] = None,
+        static_data_iter: Optional[Iterator[dict]] = None,
         on_step: Optional[Callable[[int, dict], None]] = None,
     ) -> step_lib.TrainState:
         """Train until `max_steps` (default `cfg.total_steps`) or a stop
-        signal; resumes from the newest checkpoint of `cfg.exp_dir`. The
-        model's own parameters are the starting point, so no batch is used
-        up to initialise them. `on_step(step, metrics)`, when given, is
-        called after every step with the number of steps taken so far and
-        that step's metrics (scalar tensors, not yet synchronised)."""
+        signal; resumes from the newest checkpoint of `cfg.exp_dir`, or when
+        there is none warm-starts from `cfg.warm_start_ckpt` if set. The
+        model's own parameters are the starting point otherwise, so no batch
+        is used up to initialise them. The first `cfg.static_pretrain_steps`
+        steps draw from `static_data_iter` when it is given.
+        `eval_fn(state, step)` runs after every `cfg.eval_freq`-th step.
+        `on_step(step, metrics)`, when given, is called after every step with
+        the number of steps taken so far and that step's metrics (scalar
+        tensors, not yet synchronised)."""
         cfg = self.cfg
         rng = np.random.default_rng(cfg.seed)
         self._install_signal_handlers()
         os.makedirs(cfg.exp_dir, exist_ok=True)
         if state is None:
             state = step_lib.init_state(self.model, self.optimizer)
+        if cfg.warm_start_ckpt and self.latest_step() is None:
+            state = self.warm_start(state, cfg.warm_start_ckpt)
         state, start_step = self.restore_latest(state)
 
         total = max_steps if max_steps is not None else cfg.total_steps
@@ -193,7 +336,8 @@ class Trainer:
         try:
             while step < total and not self._stop_requested:
                 t0 = time.perf_counter()
-                batch = next(data_iter)
+                use_static = static_data_iter is not None and step < cfg.static_pretrain_steps
+                batch = next(static_data_iter if use_static else data_iter)
                 t1 = time.perf_counter()
 
                 iters = augment_train_iters(step, cfg, rng)
@@ -203,6 +347,7 @@ class Trainer:
                     or (step + 1) % cfg.sync_every == 0
                     or (step + 1) % cfg.telemetry_freq == 0
                     or (step + 1) % cfg.save_ckpt_freq == 0
+                    or (eval_fn is not None and (step + 1) % cfg.eval_freq == 0)
                     or (step + 1) >= total
                 )
                 if do_sync:
@@ -249,6 +394,8 @@ class Trainer:
                     data_times, step_times = [], []
                 if step % cfg.save_ckpt_freq == 0:
                     self.save(state, step)
+                if eval_fn is not None and step % cfg.eval_freq == 0:
+                    eval_fn(state, step)
         except Exception:
             # Crash forensics: two best-effort saves, each on its own, so a
             # failed batch dump (or no batch at all, when the first fetch

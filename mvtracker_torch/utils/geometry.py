@@ -71,6 +71,7 @@ def init_pointcloud_from_rgbd(
     extrs: torch.Tensor,  # [B, V, S, 3, 4]
     stride: int = 4,
     level: int = 0,
+    return_validity_mask: bool = False,
 ):
     """Fuse per-view feature maps and depths into one world-space feature
     cloud per (batch, frame) at pyramid `level`.
@@ -78,6 +79,8 @@ def init_pointcloud_from_rgbd(
     Features are 2x2 average-pooled and depths nearest-downsampled `level`
     times. Returns xyz [B*S, V*H'*W', 3] and fvec [B*S, V*H'*W', C], flattened
     as (B, S) across clouds and (V, H, W) within one, like the JAX package.
+    With `return_validity_mask` also valid [B*S, V*H'*W'] bool, true where
+    the (downsampled) depth is positive.
     """
     b, v, s, h, w, c = fmaps.shape
     if depths.shape != (b, v, s, h, w):
@@ -91,6 +94,8 @@ def init_pointcloud_from_rgbd(
     )
     xyz = world.permute(0, 2, 1, 3, 4, 5).reshape(b * s, v * h * w, 3)
     fvec = fmaps.permute(0, 2, 1, 3, 4, 5).reshape(b * s, v * h * w, c)
+    if return_validity_mask:
+        return xyz, fvec, (depths > 0).permute(0, 2, 1, 3, 4).reshape(b * s, v * h * w)
     return xyz, fvec
 
 

@@ -1,7 +1,7 @@
 """Write the JAX package's outputs of the release protocol, the golden file
 the PyTorch port is held against.
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_release_golden.py
+    JAX_PLATFORMS=cpu python scripts/make_torch_release_golden.py [--knobs]
 
 Runs `scripts/eval_checkpoint.py` in this process with the command of
 `release/README.md` (release weights, medium preset with `--vis_geom
@@ -15,6 +15,11 @@ as the script's predictor returned them, and writes under
   `heldout_traj`, `heldout_vis`, and the scenes' names in the same order
   (`calib_seq_names`, `heldout_seq_names`);
 - `release_protocol.json`: the JSON rows the script printed and its argv.
+
+With `--knobs` the protocol runs with the round-4 inference knobs as well
+(`--global_match --chain_velocity 1.0 --knn_reuse`,
+`scripts/run_r4_final_eval.sh`) and the files are
+`release_protocol_r4knobs.{npz,json}`.
 
 The file is read with numpy only (`chip_smoke.py`, the tests). This script
 imports JAX; the port does not.
@@ -38,6 +43,7 @@ PROTOCOL_ARGS = [
     "--views", "4", "--res", "128", "--iters", "3", "--grid", "0", "--interp", "128",
     "--texture_detail", "1.0", "--texture_noise", "1.0",
 ]
+KNOBS = ["--global_match", "--chain_velocity", "1.0", "--knn_reuse"]
 
 
 def load_eval_script():
@@ -48,6 +54,9 @@ def load_eval_script():
 
 
 def main():
+    knobs = "--knobs" in sys.argv[1:]
+    protocol_args = PROTOCOL_ARGS + (KNOBS if knobs else [])
+    stem = "release_protocol_r4knobs" if knobs else "release_protocol"
     os.chdir(ROOT)
     script = load_eval_script()
     recorded = []
@@ -61,7 +70,7 @@ def main():
     script.run_predictor = recording_run_predictor
     with tempfile.TemporaryDirectory() as exp_dir:
         out_json = os.path.join(exp_dir, "rows.json")
-        argv = PROTOCOL_ARGS + ["--exp_dir", exp_dir, "--out_json", out_json]
+        argv = protocol_args + ["--exp_dir", exp_dir, "--out_json", out_json]
         sys.argv = ["eval_checkpoint.py"] + argv
         script.main()
         with open(out_json) as f:
@@ -75,9 +84,9 @@ def main():
         arrays[f"{split}_traj"] = np.stack([np.asarray(out[k][0], np.float32) for k in names])
         arrays[f"{split}_vis"] = np.stack([np.asarray(out[k][1], np.float32) for k in names])
     os.makedirs(OUT_DIR, exist_ok=True)
-    np.savez_compressed(os.path.join(OUT_DIR, "release_protocol.npz"), **arrays)
-    with open(os.path.join(OUT_DIR, "release_protocol.json"), "w") as f:
-        json.dump({"argv": PROTOCOL_ARGS, "rows": rows}, f, indent=2)
+    np.savez_compressed(os.path.join(OUT_DIR, f"{stem}.npz"), **arrays)
+    with open(os.path.join(OUT_DIR, f"{stem}.json"), "w") as f:
+        json.dump({"argv": protocol_args, "rows": rows}, f, indent=2)
         f.write("\n")
     print(f"wrote {OUT_DIR}: " + ", ".join(f"{k} {v.shape}" for k, v in arrays.items()))
 

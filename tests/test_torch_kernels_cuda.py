@@ -259,3 +259,89 @@ def test_corr_backward_kernel_rejects_what_it_cannot_take(gen):
         t_corr.corr_select_backward_cuda(fvec[..., :6].contiguous(), targets[..., :6].contiguous(), idx, g)
     with pytest.raises(ValueError):
         t_corr.corr_select_backward_cuda(fvec.cpu(), targets, idx, g)
+
+
+# ---------------------------------------------------------------------------
+# Shapes of the tracker's options: k=24 at level 0 (`corr_neighbors_per_level`
+# with corr_k0=24), clouds with invalid-depth points at the 1e9 sentinel
+# (`corr_filter_invalid_depth`).
+# ---------------------------------------------------------------------------
+
+def sentinel_cloud(gen, b, n, frame=0):
+    """A cloud with half its points, and all of batch entry `frame`, at the
+    1e9 sentinel: many exact ties far beyond every real point."""
+    ref = torch.rand(b, n, 3, generator=gen, device="cuda") * 4 - 2
+    ref[:, torch.randperm(n, generator=gen, device="cuda")[: n // 2]] = 1e9
+    ref[frame] = 1e9
+    return ref
+
+
+@pytest.mark.parametrize("b,n,m", [(8, 4096, 32), (8, 49152, 132), (12, 16384, 256)])
+def test_knn_kernel_at_k24(gen, b, n, m):
+    """K1 at k=24: the level-0 search of corr_k0=24 at the release protocol's,
+    the predictor defaults' and the flagship's level-0 shapes."""
+    ref = torch.rand(b, n, 3, generator=gen, device="cuda") * 4 - 2
+    query = torch.randn(b, m, 3, generator=gen, device="cuda") * 0.5
+    before = t_knn.knn_cuda.launches_by_k.get(24, 0)
+    d, i = t_knn.knn(ref, query, 24)
+    assert t_knn.knn_cuda.launches_by_k[24] == before + 1
+    dp, _ = t_knn.knn_plain(ref, query, 24)
+    torch.testing.assert_close(d, dp, rtol=KNN_RTOL, atol=KNN_ATOL)
+    pts = torch.gather(ref, 1, i.reshape(b, -1, 1).expand(-1, -1, 3)).reshape(b, m, 24, 3)
+    torch.testing.assert_close((pts - query[:, :, None]).norm(dim=-1), d, rtol=KNN_RTOL, atol=KNN_ATOL)
+
+
+@pytest.mark.parametrize("k", [1, 12, 24])
+@pytest.mark.parametrize("b,n,m", [(8, 4096, 32), (4, 1024, 50)])
+def test_knn_kernel_on_sentinel_clouds(gen, b, n, m, k):
+    """Half the points and one whole frame at 1e9: the real points come first
+    in order; in the all-sentinel frame every distance is the sentinel's and
+    every index a sentinel point. The exact kernel's indices equal the
+    stable sort's there too."""
+    ref = sentinel_cloud(gen, b, n)
+    query = torch.randn(b, m, 3, generator=gen, device="cuda") * 0.5
+    d, i = t_knn.knn(ref, query, k)
+    dp, _ = t_knn.knn_plain(ref, query, k)
+    torch.testing.assert_close(d, dp, rtol=KNN_RTOL, atol=KNN_ATOL)
+    assert bool((d[0] > 1e8).all()) and bool((d[1:] < 1e8).all())
+    assert bool((ref[0].gather(0, i[0].reshape(-1, 1).expand(-1, 3)) == 1e9).all())
+    de, ie = t_knn.knn_exact_cuda(ref, query, k)
+    _, ip = t_knn.knn_exact_plain(ref, query, k)
+    assert torch.equal(ie, ip)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("p,n", [(4096, 32), (49152, 132)])
+def test_corr_kernel_at_k24(gen, dtype, p, n):
+    """K2 at K=24, C=96: a full chunk of 16 neighbours and a partial one of 8,
+    fp32 targets (the tracker's call); a fixed order of sums."""
+    b, c, k = 8, 96, 24
+    xyz = torch.rand(b, p, 3, generator=gen, device="cuda") * 4 - 2
+    q = torch.randn(b, n, 3, generator=gen, device="cuda") * 0.5
+    idx = t_knn.knn_plain(xyz, q, k)[1]
+    fvec = torch.randn(b, p, c, generator=gen, device="cuda").to(dtype)
+    targets = torch.randn(b, n, c, generator=gen, device="cuda")
+    got = t_corr.corr_select(fvec, targets, idx)
+    want = t_corr.corr_select_plain(fvec, targets, idx)
+    torch.testing.assert_close(got, want, rtol=0, atol=CORR_ATOL[dtype])
+    assert torch.equal(t_corr.corr_select_cuda(fvec, targets, idx), got)
+    assert torch.equal(t_corr.corr_select_cuda(fvec, targets.to(dtype), idx), got)
+
+
+@pytest.mark.parametrize("fvec_dtype", [torch.bfloat16, torch.float32])
+def test_corr_backward_kernel_at_k24(gen, fvec_dtype):
+    """K3 at the protocol's training level 0 with K=24 (B=8, P=4096, N=32,
+    C=96), on kNN indices: 1.5 times the contributions per b of K=16."""
+    b, p, n, k, c = 8, 4096, 32, 24, 96
+    xyz = torch.rand(b, p, 3, generator=gen, device="cuda") * 4 - 2
+    q = torch.randn(b, n, 3, generator=gen, device="cuda") * 0.5
+    idx = t_knn.knn_plain(xyz, q, k)[1]
+    fvec = torch.randn(b, p, c, generator=gen, device="cuda").to(fvec_dtype)
+    targets = torch.randn(b, n, c, generator=gen, device="cuda")
+    g = torch.randn(b, n, k, generator=gen, device="cuda")
+    d_fvec, d_targets = t_corr.corr_select_backward(fvec, targets, idx, g)
+    want_fvec, want_targets = t_corr.corr_select_backward_plain(fvec, targets, idx, g)
+    torch.testing.assert_close(d_fvec.float(), want_fvec.float(), rtol=0, atol=BWD_ATOL[fvec_dtype])
+    torch.testing.assert_close(d_targets, want_targets, rtol=0, atol=BWD_ATOL[torch.float32])
+    again_fvec, again_targets = t_corr.corr_select_backward(fvec, targets, idx, g)
+    assert torch.equal(again_fvec, d_fvec) and torch.equal(again_targets, d_targets)

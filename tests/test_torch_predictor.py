@@ -147,7 +147,7 @@ def test_copycat_through_the_predictor_matches_jax(baseline):
 
 def test_predictor_refuses_what_it_cannot_do(tracker):
     model = tracker[0]
-    with pytest.raises(NotImplementedError, match="collect_stats"):
+    with pytest.raises(ValueError, match="collect_stats"):  # a model that collects no statistics
         t_pred.EvaluationPredictor(model, consume_model_stats=True, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

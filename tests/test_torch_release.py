@@ -302,8 +302,8 @@ def test_cli_refuses_what_is_not_ported():
         t_cli.run(parser.parse_args(["--params_msgpack", RELEASE, "--step", "5", "--device", "cpu"]))
     with pytest.raises(ValueError, match="params_msgpack"):
         t_cli.run(parser.parse_args(["--device", "cpu"]))
-    with pytest.raises(NotImplementedError, match="corr_knn_reuse"):
-        t_cli.run(parser.parse_args(["--params_msgpack", RELEASE, "--knn_reuse", "--device", "cpu"]))
+    # The inference knobs are ported: they reach the model.
+    assert t_cli.build(parser.parse_args(["--knn_reuse", "--device", "cpu"])).corr_knn_reuse
 
 
 @pytest.mark.parametrize("flags, exact", [(["--fp32"], True), ([], False)])

@@ -350,7 +350,7 @@ def _window_inputs(model, scene):
     context = model._build_context(fmaps, depths[:, :, :: model.stride, :: model.stride], intrs, extrs)
     query_t, query_xyz = query[:, 0].long(), query[:, 1:].contiguous()
     feat_init = model._feat_init(context, query_t, query_xyz)
-    context_w = [(xyz[:s], fvec[:s]) for xyz, fvec in context]
+    context_w = [(xyz[:s], fvec[:s], valid) for xyz, fvec, valid in context]  # valid: None, no depth filter
     coords_init = query_xyz[None].expand(s, N, 3)
     track_mask = (torch.arange(s)[:, None] >= query_t[None, :]).float()
     return context_w, coords_init, torch.full((s, N), 10.0), track_mask, query_t < s, feat_init
