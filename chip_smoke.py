@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`mvtracker_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--release release/mvtracker_medium_synth.msgpack]
+    python3 chip_smoke.py [--release release/mvtracker_medium_synth.msgpack] [--phases 2,11]
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 
@@ -63,7 +63,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     normalized and the point-transformer presets, the latter against the
     plain CPU path; (e) `cli.serve`'s server answering 2 flagship requests
     as the predictor does;
-11. a JSON line for the kernels, then the result line.
+11. the host data path and the real datasets' formats: (a) the native
+    library built from `native/datapath.cpp` (the phase fails without it),
+    each of its six functions against its numpy version on a flagship-size
+    stack, both timed; (b) `configs/mvtracker.yaml` in bf16 with remat
+    trains 6 steps through `Trainer.fit` on augmented randomized scenes
+    from the disk cache and the prefetching loader, with the watchdog at its
+    default, TensorBoard where it imports, and a profiler window over steps
+    2 to 4 (K1/K2/K3 launches per step, losses finite); a second run over
+    the cache renders nothing; (c) an evaluation hook that raises makes the
+    trainer dump its batch, which replays on the card to the plain CPU
+    path's loss; (d) two rendered scenes written in the Kubric layout with
+    the port's own image writers, read back equal, then 3 steps of
+    `cli.train` on them; (e) a Panoptic Studio and a DexYCB scene through
+    `cli.eval` (medium model, seeded weights, the predictor's defaults), and
+    the same requests held against the plain CPU path;
+12. a JSON line for the kernels, then the result line.
 
 Needs CUDA; exits non-zero without it. Imports nothing of JAX.
 """
@@ -74,11 +89,13 @@ import copy
 import io
 import json
 import logging
+import os
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -1750,6 +1767,483 @@ def phase_options(torch, smi, knn_ops, corr_ops, release):
     return paths
 
 
+# -- Dataset fixtures for phase 11, written with the port's own image_io
+# (the GPU host has no imageio): the on-disk layouts the loaders read.
+
+
+def rotation_to_quaternion(r: np.ndarray) -> np.ndarray:
+    """[3, 3] rotation -> (w, x, y, z)."""
+    w = np.sqrt(max(0.0, 1 + r[0, 0] + r[1, 1] + r[2, 2])) / 2
+    if w <= 1e-6:
+        raise ValueError("rotation too close to a half turn for this conversion")
+    return np.array([w, (r[2, 1] - r[1, 2]) / (4 * w), (r[0, 2] - r[2, 0]) / (4 * w), (r[1, 0] - r[0, 1]) / (4 * w)])
+
+
+def write_kubric_scene(scene, path) -> None:
+    """A rendered Datapoint in the Kubric layout: per view RGBA PNGs,
+    euclidean-depth float32 TIFFs, tracks_2d.npz and metadata.json (K
+    normalised, camera-to-world positions and quaternions, both in Kubric's
+    -y/-z camera convention)."""
+    from mvtracker_torch.datasets import image_io
+    from mvtracker_torch.datasets.kubric import depth_euclidean_to_z
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    v, t, h, w, _ = scene.video.shape
+    n = scene.trajectory_3d.shape[1]
+    np.savez(path / "tracks_3d.npz", tracks_3d=scene.trajectory_3d)
+    np.savez(path / "tracks_segmentation_ids.npz", tracks_segmentation_ids=np.zeros(n, np.int32))
+    flip = np.diag([1.0, -1.0, -1.0])
+    for vi in range(v):
+        vp = path / f"view_{vi}"
+        vp.mkdir(exist_ok=True)
+        intr = scene.intrs[vi, 0].astype(np.float64)
+        positions, quaternions = [], []
+        for ti in range(t):
+            sq = np.eye(4)
+            sq[:3] = flip @ scene.extrs[vi, ti].astype(np.float64)
+            c2w = np.linalg.inv(sq)
+            positions.append(c2w[:3, 3])
+            quaternions.append(rotation_to_quaternion(c2w[:3, :3]))
+        focal_length = intr[0, 0] / w  # sensor width 1
+        ones = np.ones((1, h, w), np.float32)
+        rescale = 1.0 / depth_euclidean_to_z(ones, 1.0, focal_length)[0]
+        for ti in range(t):
+            rgba = np.concatenate([scene.video[vi, ti].astype(np.uint8), np.full((h, w, 1), 255, np.uint8)], axis=-1)
+            image_io.write_png(vp / f"rgba_{ti:05d}.png", rgba)
+            image_io.write_tiff(vp / f"depth_{ti:05d}.tiff", (scene.videodepth[vi, ti] * rescale).astype(np.float32))
+        np.savez(vp / "tracks_2d.npz", tracks_2d=scene.trajectory[vi, :, :, :2].astype(np.float32),
+                 occlusion=~scene.visibility[vi])
+        meta = {"camera": {"K": (np.diag([1.0 / w, 1.0 / h, 1.0]) @ intr @ flip).tolist(),
+                           "positions": np.asarray(positions).tolist(), "quaternions": np.asarray(quaternions).tolist(),
+                           "sensor_width": 1.0, "focal_length": focal_length},
+                "metadata": {"resolution": [w, h]}}
+        (vp / "metadata.json").write_text(json.dumps(meta))
+
+
+def write_panoptic_scene(scene, path, cameras) -> None:
+    """A rendered Datapoint in the Panoptic Studio layout, view i as camera
+    id cameras[i]: PNG frames under ims/<id>/, dynamic3dgs_depth/
+    depths_<id>.npy, and tapvid3d_annotations.npz with the per-camera rows
+    at the ids."""
+    from mvtracker_torch.datasets import image_io
+
+    path = Path(path)
+    v, t = scene.video.shape[:2]
+    rows = max(cameras) + 1
+
+    def at_ids(a):
+        out = np.zeros((rows,) + a.shape[1:], a.dtype)
+        out[list(cameras)] = a
+        return out
+
+    (path / "dynamic3dgs_depth").mkdir(parents=True, exist_ok=True)
+    np.savez(path / "tapvid3d_annotations.npz", trajectories=scene.trajectory_3d,
+             trajectories_pixelspace=at_ids(scene.trajectory), per_view_visibilities=at_ids(scene.visibility),
+             query_points_3d=scene.query_points_3d, extrinsics=at_ids(scene.extrs), intrinsics=at_ids(scene.intrs))
+    for vi, cam in enumerate(cameras):
+        d = path / "ims" / str(cam)
+        d.mkdir(parents=True, exist_ok=True)
+        for ti in range(t):
+            image_io.write_png(d / f"{ti:05d}.png", scene.video[vi, ti].astype(np.uint8))
+        np.save(path / "dynamic3dgs_depth" / f"depths_{cam:02d}.npy", scene.videodepth[vi])
+
+
+def write_dexycb_scene(scene, path) -> None:
+    """A rendered Datapoint in the DexYCB layout: per view PNG frames under
+    rgb/, 16-bit millimetre depth PNGs under depth/, intrinsics_extrinsics.npz;
+    tracks_3d.npz with visibilities and queries."""
+    from mvtracker_torch.datasets import image_io
+
+    path = Path(path)
+    v, t = scene.video.shape[:2]
+    path.mkdir(parents=True, exist_ok=True)
+    np.savez(path / "tracks_3d.npz", tracks_3d=scene.trajectory_3d, per_view_visibilities=scene.visibility,
+             query_points_3d=scene.query_points_3d)
+    for vi in range(v):
+        vp = path / f"view_{vi}"
+        (vp / "rgb").mkdir(parents=True, exist_ok=True)
+        (vp / "depth").mkdir(exist_ok=True)
+        for ti in range(t):
+            image_io.write_png(vp / "rgb" / f"{ti:05d}.png", scene.video[vi, ti].astype(np.uint8))
+            mm = np.clip(np.rint(scene.videodepth[vi, ti] * 1000), 0, 65535).astype(np.uint16)
+            image_io.write_png(vp / "depth" / f"{ti:05d}.png", mm)
+        np.savez(vp / "intrinsics_extrinsics.npz", K=scene.intrs[vi, 0], extr=scene.extrs[vi, 0])
+
+
+# Phase 11: the host data path, augmented training, crash replay and the
+# real datasets' formats.
+# (a) The native data path at a flagship-size stack (4 views x 24 frames x
+# 256^2 x 3) against its numpy versions: the libraries sum in float32 in
+# their own order, the numpy versions in theirs (`tests/test_torch_native.py`
+# holds 1e-4 on values of order 1): on 0..255 held to 2e-3, the integer and
+# copy functions exactly. The align-corners resize also rounds its weights
+# apart: the library computes each source position in float32 (y * 255 /
+# 383 up to 255, an error up to 255 * 2^-24), the numpy version in float64,
+# so a weight may differ by 1.5e-5 and a value on 0..255 by up to 3.9e-3
+# (an H100 reads 3.4e-3): held to 5e-3.
+NATIVE_ATOL = {"gaussian_blur": 2e-3, "bilinear_resize_ac": 5e-3, "photometric_jitter": 2e-3}
+AUG_SCENES, AUG_STEPS, AUG_WORKERS = 6, 6, 4
+PROFILE_START, PROFILE_STEPS = 2, 3
+# (c) Crash replay, the loss of the dumped batch through the kernels (fp32,
+# TF32 off, exact kNN) against the plain CPU path, relative gap. CPU
+# control on the same batch and weights: oneDNN's convolutions against
+# PyTorch's own moved the loss by 8.0e-7 (fp32 medium model, protocol
+# shape); phase 6 reads 1.3e-7 at the flagship shape.
+REPLAY_RTOL = 1e-5
+KUBRIC_SCENES, KUBRIC_TRACKS = 2, 1024
+# The real-world scenes: 4 cameras x 12 frames at 192x256, 64 tracks.
+REAL_T, REAL_H, REAL_W, REAL_TRACKS = EVAL_T, 192, 256, 64
+PANOPTIC_CAMERAS = (1, 7, 14, 20)
+
+
+def timed(fn, reps: int = 3):
+    """(result, best wall ms of `reps` calls)."""
+    best, out = float("inf"), None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return out, best
+
+
+def phase_data_path(torch, smi, knn_ops, corr_ops):
+    """Phase 11. Returns {path: launch totals}."""
+    from mvtracker_torch import native
+    from mvtracker_torch.cli import eval as cli_eval
+    from mvtracker_torch.cli import train as cli_train
+    from mvtracker_torch.config import build_model, load_config
+    from mvtracker_torch.convert import random_state_dict
+    from mvtracker_torch.datasets import synthetic
+    from mvtracker_torch.datasets.augmentations import default_train_augmentations
+    from mvtracker_torch.datasets.kubric import KubricMultiViewDataset, load_scene
+    from mvtracker_torch.datasets.loader import PrefetchLoader, SyntheticSceneDataset
+    from mvtracker_torch.datasets.real_world import dataset_from_name
+    from mvtracker_torch.device import fp32_precision
+    from mvtracker_torch.evaluation.evaluator import to_host
+    from mvtracker_torch.evaluation.predictor import EvaluationPredictor
+    from mvtracker_torch.presets import build_model as preset_model
+    from mvtracker_torch.training import replay
+    from mvtracker_torch.training import step as step_lib
+    from mvtracker_torch.training.train import TrainConfig, Trainer
+
+    counters = {"knn": knn_ops.knn_cuda, "knn_tiled": knn_ops.knn_tiled_cuda, "knn_exact": knn_ops.knn_exact_cuda,
+                "corr": corr_ops.corr_select_cuda, "corr_bwd": corr_ops.corr_select_backward_cuda}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def made():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    paths = {}
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    torch.cuda.empty_cache()
+
+    # (a) The native library, built from native/datapath.cpp into the port's
+    # build directory, against the numpy versions.
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native data path did not build (g++ on this host?); see the warning above")
+    log(f"data path (a) native library {native.library_path().relative_to(ROOT)} built from "
+        f"{native.SOURCE.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    video8 = rng.integers(0, 256, size=(V, T, H, W, 3), dtype=np.uint8)
+    video = video8.astype(np.float32)
+    frames = video.reshape(-1, H, W, 3)
+    depth = np.where(rng.random((V, T, H, W)) < 0.1, 0.0, rng.uniform(0.5, 5.0, (V, T, H, W))).astype(np.float32)
+    n = frames.shape[0]
+    jitter = (np.full(n, frames.mean(), np.float32), rng.uniform(0.8, 1.2, n).astype(np.float32),
+              rng.uniform(0.8, 1.2, n).astype(np.float32), rng.uniform(0.8, 1.2, n).astype(np.float32))
+    out_h, out_w = 384, 512
+    cases = {
+        "gaussian_blur": (lambda: native.gaussian_blur(video.swapaxes(-1, -3), 5, 1.0),
+                          lambda: native.gaussian_blur_plain(video.swapaxes(-1, -3), 5, 1.0)),
+        "nearest_resize": (lambda: native.nearest_resize(video, out_h, out_w),
+                           lambda: native.nearest_resize_plain(video, out_h, out_w)),
+        "bilinear_resize_ac": (lambda: native.bilinear_resize_ac(video, out_h, out_w),
+                               lambda: native.bilinear_resize_ac_plain(video, out_h, out_w)),
+        "normalize_rgb": (lambda: native.normalize_rgb(video8), lambda: native.normalize_rgb_plain(video8)),
+        "photometric_jitter": (lambda: native.photometric_jitter(frames, *jitter),
+                               lambda: native.photometric_jitter_plain(frames, *jitter)),
+        "depth_invalid_fraction": (lambda: native.depth_invalid_fraction(depth),
+                                   lambda: native.depth_invalid_fraction_plain(depth)),
+    }
+    for name, (lib_fn, plain_fn) in cases.items():
+        got, lib_ms = timed(lib_fn)
+        want, plain_ms = timed(plain_fn, reps=1)
+        err = float(np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64)).max())
+        log(f"data path (a) {name} at {V} x {T} x {H}x{W}(x3): native {lib_ms:.2f} ms, numpy {plain_ms:.2f} ms, "
+            f"max |gap| {err:.3e} (limit {NATIVE_ATOL.get(name, 0.0)}) [{smi}]")
+        if not err <= NATIVE_ATOL.get(name, 0.0):
+            raise AssertionError(f"native {name} differs from its numpy version by {err}")
+
+    # (b) Augmented training at the flagship width: configs/mvtracker.yaml
+    # in bf16 with the transformer rematerialised, seeded weights, on
+    # augmented randomized scenes through the disk cache and the prefetching
+    # loader, as scripts/train_synthetic.py builds them.
+    t0 = time.perf_counter()
+    cache_dir = root / "scene_cache"
+    scene_kw = dict(n_views=V, n_frames=T, height=H, width=W, n_tracks=N_QUERIES)
+    renders = []
+    real_render = synthetic.render_scene
+
+    def counted_render(**kw):
+        renders.append(kw["seed"])
+        return real_render(**kw)
+
+    synthetic.render_scene = counted_render
+    try:
+        dataset = SyntheticSceneDataset(n_scenes=AUG_SCENES, cache=True, seed=0, randomize=True, augment=True,
+                                        disk_cache_dir=str(cache_dir), **scene_kw)
+        cfg = load_config(str(ROOT / "configs" / "mvtracker.yaml"), ["model.compute_dtype=bfloat16", "model.remat=true"])
+        model = build_model(cfg.model, device="cuda").train()
+        model.load_state_dict(random_state_dict(model, seed=0))
+        trainer = Trainer(model, TrainConfig(
+            train_iters=ITERS, adaptive_iters=False, warmup_steps=0, telemetry_freq=1, save_ckpt_freq=10**6,
+            profile_start_step=PROFILE_START, profile_n_steps=PROFILE_STEPS, exp_dir=str(root / "augmented")))
+        if trainer.cfg.watchdog_timeout_s != 600.0:
+            raise AssertionError("the trainer's watchdog is not at the JAX default")
+        loader = PrefetchLoader(dataset, batch_size=1, num_workers=AUG_WORKERS, shuffle=True)
+        drawn, steps = [], []
+
+        def recording(it):
+            for batch in it:
+                drawn.append(windows_of(batch["query_points"], T, WINDOW, WINDOW // 2))
+                yield batch
+
+        def on_step(step, metrics):
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter(), made(), {k: float(v) for k, v in metrics.items()}))
+
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        t_fit = time.perf_counter()
+        with LogRecords() as logs:
+            state = trainer.fit(recording(loader.prefetching_iter()), max_steps=AUG_STEPS, on_step=on_step)
+        paths["augmented_train"] = {k: made()[k] for k in ("knn", "corr", "corr_bwd")}
+        telemetry = [m.split(" | ")[-1] for m in logs.messages if "mean/med/std" in m]
+        memory = [m.split(": ", 1)[-1] for m in logs.messages if "device memory (MiB)" in m]
+        last, last_t = {k: 0 for k in counters}, t_fit
+        for i, (t, counts, metrics) in enumerate(steps):
+            w = drawn[i]
+            step_counts = {k: counts[k] - last[k] for k in ("knn", "corr", "corr_bwd")}
+            want = {"knn": 1 + w * ITERS * 3, "corr": w * ITERS * 4, "corr_bwd": w * ITERS * 4}
+            if step_counts != want or counts["knn_exact"] or counts["knn_tiled"]:
+                raise AssertionError(f"augmented step {i}: launches {step_counts}, want {want} ({w} windows)")
+            if not all(np.isfinite(v) for v in metrics.values()) or not metrics["grad_norm"] > 0:
+                raise AssertionError(f"augmented step {i}: metrics {metrics}")
+            log(f"data path (b) augmented step {i}: {(t - last_t) * 1e3:.2f} ms to its end with the batch's wait; "
+                f"trainer telemetry (data, then the step to its loss fetch) {telemetry[i]}; loss {metrics['loss']:.6f}, "
+                f"grad_norm {metrics['grad_norm']:.4f}; K1/K2/K3 launches {step_counts} ({w} windows); device memory "
+                f"{memory[i] if i < len(memory) else 'not logged'} [{smi}]")
+            last, last_t = counts, t
+        if state.step != AUG_STEPS:
+            raise AssertionError(f"the augmented run took {state.step} steps")
+        trace = trainer.profile_trace
+        if trace is None or not Path(trace).exists():
+            raise AssertionError("the profiler window wrote no trace")
+        with open(trace, "rb") as f:  # hundreds of MiB: count the device kernels' events without parsing
+            kernels = f.read().count(b'"cat": "kernel"')
+        tb = root / "augmented" / "tb"
+        log(f"data path (b) augmented training: {AUG_STEPS} steps of configs/mvtracker.yaml (bf16, remat) on "
+            f"{AUG_SCENES} augmented randomized scenes of {V} x {T} x {H}x{W}, {N_QUERIES} tracks, "
+            f"{len(set(renders))} rendered into the disk cache, {AUG_WORKERS} loader workers: "
+            f"{time.perf_counter() - t0:.1f} s; watchdog armed at {trainer.cfg.watchdog_timeout_s:.0f} s and "
+            f"cancelled; TensorBoard {'on, events in ' + str(tb.relative_to(root)) if trainer.cfg.tensorboard and tb.exists() else 'off (torch.utils.tensorboard not importable here)'}; "
+            f"profiler trace of steps {PROFILE_START}-{PROFILE_START + PROFILE_STEPS - 1}: "
+            f"{os.path.getsize(trace) / 2**20:.1f} MiB, {kernels} device kernel events; "
+            f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{smi}]")
+        if not kernels:
+            raise AssertionError("the profiler trace holds no device kernel")
+        del trainer, state
+
+        # The augmentation alone, on a cached scene, native and numpy.
+        cached = SyntheticSceneDataset(n_scenes=AUG_SCENES, seed=0, randomize=True, disk_cache_dir=str(cache_dir),
+                                       **scene_kw)
+        dp, load_ms = timed(lambda: cached[0])
+        _, aug_ms = timed(lambda: default_train_augmentations(dp, np.random.default_rng(1)))
+        saved = native._lib
+        native._lib, native._tried = None, True
+        try:
+            _, aug_numpy_ms = timed(lambda: default_train_augmentations(dp, np.random.default_rng(1)), reps=1)
+        finally:
+            native._lib = saved
+        log(f"data path (b) one flagship scene: disk-cache read {load_ms:.1f} ms, default_train_augmentations "
+            f"{aug_ms:.1f} ms with the native library, {aug_numpy_ms:.1f} ms with its numpy versions [{smi}]")
+
+        # A second run on a fresh dataset over the same cache renders nothing.
+        before = len(renders)
+        again = SyntheticSceneDataset(n_scenes=AUG_SCENES, seed=0, randomize=True, augment=True,
+                                      disk_cache_dir=str(cache_dir), **scene_kw)
+        trainer = Trainer(model, TrainConfig(train_iters=ITERS, adaptive_iters=False, warmup_steps=0,
+                                             save_ckpt_freq=10**6, exp_dir=str(root / "augmented_again")))
+        reset()
+        state = trainer.fit(iter(PrefetchLoader(again, batch_size=1, num_workers=AUG_WORKERS, shuffle=True)),
+                            max_steps=2)
+        if len(renders) != before or state.step != 2:
+            raise AssertionError(f"the second run rendered {len(renders) - before} scenes, took {state.step} steps")
+        log(f"data path (b) second run over the disk cache: 2 steps, 0 scenes rendered")
+        del trainer, state, model
+    finally:
+        synthetic.render_scene = real_render
+    torch.cuda.empty_cache()
+
+    # (c) Crash replay: an evaluation hook that raises at step 2 makes the
+    # trainer dump its batch and a checkpoint; the batch replays on the card
+    # from that checkpoint and on the plain CPU path with the same weights.
+    t0 = time.perf_counter()
+
+    def medium_fp32(device):
+        return preset_model("medium", vis_geom=True, vis_head_hidden=128, compute_dtype="float32",
+                            knn_backend="exact", device=device).train()
+
+    exp = root / "crash_run"
+    crash_ds = SyntheticSceneDataset(n_scenes=3, cache=True, seed=555, randomize=True, n_views=4, n_frames=EVAL_T,
+                                     height=128, width=128, n_tracks=PROTOCOL_QUERIES, texture_detail=1.0,
+                                     texture_noise=1.0)
+
+    def boom(state, step):
+        raise RuntimeError(f"injected failure at step {step}")
+
+    with fp32_precision(exact=True):
+        model = seeded_weights(medium_fp32("cuda"))
+        trainer = Trainer(model, TrainConfig(train_iters=PROTOCOL_ITERS, adaptive_iters=False, warmup_steps=0,
+                                             eval_freq=2, exp_dir=str(exp)))
+        try:
+            trainer.fit(iter(PrefetchLoader(crash_ds, batch_size=1, shuffle=False, num_workers=1)), eval_fn=boom,
+                        max_steps=5)
+        except RuntimeError as e:
+            if "injected failure at step 2" not in str(e):
+                raise
+        else:
+            raise AssertionError("the injected failure did not reach the caller")
+        dumps = sorted(os.listdir(exp / "crash"))
+        if dumps != ["batch_step2.npz"]:
+            raise AssertionError(f"crash dumps {dumps}")
+        batch = replay.load_crash_batch(str(exp / "crash"))
+        restored = medium_fp32("cuda")
+        restorer = Trainer(restored, TrainConfig(exp_dir=str(exp)))
+        _, ckpt_step = restorer.restore_latest(step_lib.init_state(restored, restorer.optimizer))
+        reset()
+        card = replay.replay(batch, restored, iters=PROTOCOL_ITERS)
+        paths["crash_replay"] = {k: made()[k] for k in ("knn_exact", "corr", "corr_bwd")}
+        cpu = replay.replay(batch, copy.deepcopy(restored).cpu(), iters=PROTOCOL_ITERS)
+    gap = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    log(f"data path (c) crash replay of {dumps[0]} ({', '.join(f'{k} {tuple(v.shape)}' for k, v in batch.items())}) "
+        f"from the checkpoint of step {ckpt_step}: card loss {card['loss']:.8f}, plain CPU loss {cpu['loss']:.8f}, "
+        f"relative gap {gap:.2e} (limit {REPLAY_RTOL}); non-finite gradients card {card['nonfinite_grad_leaves']} "
+        f"CPU {cpu['nonfinite_grad_leaves']}; launches {paths['crash_replay']}; {time.perf_counter() - t0:.1f} s [{smi}]")
+    if not (np.isfinite(card["loss"]) and gap <= REPLAY_RTOL and ckpt_step == 2 and not card["nonfinite_grad_leaves"]):
+        raise AssertionError("crash replay on the card does not give the plain CPU path's loss")
+    del model, trainer, restored, restorer
+    torch.cuda.empty_cache()
+
+    # (d) The Kubric format through cli.train: two rendered scenes written in
+    # its layout, read back, and 3 flagship steps of configs/mvtracker.yaml.
+    t0 = time.perf_counter()
+    kroot = root / "kubric"
+    rendered = []
+    for i in range(KUBRIC_SCENES):
+        scene = synthetic.render_scene(seed=70 + i, n_views=V, n_frames=T, height=H, width=W, n_tracks=KUBRIC_TRACKS)
+        write_kubric_scene(scene, kroot / f"scene_{i:03d}")
+        rendered.append(scene)
+    write_s = time.perf_counter() - t0
+    for i, scene in enumerate(rendered):
+        raw, read_ms = timed(lambda: load_scene(str(kroot / f"scene_{i:03d}"), sanity_check_projection=True), reps=1)
+        depth_gap = float(np.max(np.abs(raw["videodepth"] - scene.videodepth) / np.maximum(scene.videodepth, 1e-6)))
+        if not (np.array_equal(raw["video"], scene.video.astype(np.uint8).astype(np.float32))
+                and np.array_equal(raw["tracks_3d"], scene.trajectory_3d) and depth_gap <= 2e-6
+                and np.array_equal(raw["occlusion"], ~scene.visibility)):
+            raise AssertionError(f"Kubric scene {i} read back differs (depth relative gap {depth_gap:.2e})")
+        log(f"data path (d) Kubric scene {i}: {V} views x {T} frames x {H}x{W} RGBA PNG + float32 TIFF, "
+            f"{KUBRIC_TRACKS} tracks; read back in {read_ms:.1f} ms, RGB equal, depth relative gap {depth_gap:.2e} "
+            f"(float32 round trip of the euclidean conversion, limit 2e-6) [{smi}]")
+    kubric = KubricMultiViewDataset(str(kroot), num_tracks=N_QUERIES, seed=0)
+    order = PrefetchLoader(kubric, shuffle=True, seed=0)
+    scenes_drawn = [int(order._order(0)[0]), int(order._order(0)[1]), int(order._order(1)[0])]
+    windows = [windows_of(kubric[i].query_points_3d, T, WINDOW, WINDOW // 2) for i in scenes_drawn]
+    exp = root / "kubric_exp"
+    argv = ["--config", str(ROOT / "configs" / "mvtracker.yaml"), "--device", "cuda", "data.dataset=kubric",
+            f"data.root={kroot}", "trainer.total_steps=3", f"trainer.exp_dir={exp}", "trainer.telemetry_freq=1"]
+    torch.cuda.empty_cache()
+    reset()
+    t1 = time.perf_counter()
+    with LogRecords() as logs:
+        state = cli_train.main(argv)
+    train_s = time.perf_counter() - t1
+    paths["kubric_cli_train"] = {k: made()[k] for k in ("knn", "corr", "corr_bwd")}
+    # adaptive_iters with 100 warm-up steps: one iteration a step.
+    want = {"knn": sum(1 + w * 3 for w in windows), "corr": sum(w * 4 for w in windows),
+            "corr_bwd": sum(w * 4 for w in windows)}
+    if state.step != 3 or paths["kubric_cli_train"] != want:
+        raise AssertionError(f"cli.train on Kubric: {state.step} steps, launches {made()}, want {want}")
+    telemetry = [m.split(" | ")[-1] for m in logs.messages if "mean/med/std" in m]
+    log(f"data path (d) cli.train --config configs/mvtracker.yaml data.dataset=kubric trainer.total_steps=3: "
+        f"{train_s:.1f} s (fp32, 1 iteration a step in the warm-up), scenes {scenes_drawn} with {windows} windows; "
+        f"launches {paths['kubric_cli_train']}; telemetry {telemetry}; writing the scenes {write_s:.1f} s [{smi}]")
+    del state
+    torch.cuda.empty_cache()
+
+    # (e) Panoptic Studio and DexYCB formats through cli.eval, the medium
+    # model with seeded weights at the predictor's defaults.
+    t0 = time.perf_counter()
+    rroot = root / "real"
+    for name, seed in (("panoptic", 80), ("dexycb", 81)):
+        scene = synthetic.render_scene(seed=seed, n_views=4, n_frames=REAL_T, height=REAL_H, width=REAL_W,
+                                       n_tracks=REAL_TRACKS)
+        if name == "panoptic":
+            write_panoptic_scene(scene, rroot / "panoptic-multiview" / "seq_0", PANOPTIC_CAMERAS)
+        else:
+            write_dexycb_scene(scene, rroot / "dex-ycb-multiview" / "seq_0")
+    exp = root / "medium_exp"
+    medium = seeded_weights(preset_model("medium", vis_geom=True, vis_head_hidden=128, device="cuda"))
+    saver = Trainer(medium, TrainConfig(exp_dir=str(exp)))
+    saver.save(step_lib.init_state(medium, saver.optimizer), 0)
+    medium_argv = ["--config", str(ROOT / "configs" / "mvtracker_medium.yaml"), "--device", "cuda",
+                   "model.vis_geom_features=true", "model.vis_head_hidden=128", f"data.root={rroot}",
+                   f"trainer.exp_dir={exp}", "eval.interp_shape=[384, 512]"]
+    paths["realworld_cli_eval"] = {"knn": 0, "corr": 0}
+    for name in ("panoptic-multiview", "dexycb-multiview"):
+        dp = dataset_from_name(name, str(rroot))[0]
+        reset()
+        t1 = time.perf_counter()
+        with LogRecords() as logs:
+            summary = cli_eval.main(medium_argv + [f"data.dataset={name}", f"eval.setting={name}"])
+        eval_s = time.perf_counter() - t1
+        counts = {k: made()[k] for k in ("knn", "corr")}
+        # The support grid's points start at frame 0, so both windows run.
+        k1, k2 = eval_launches(SimpleNamespace(query_points_3d=np.zeros((1, 4))), SERVE_ITERS, False)
+        if "evaluating checkpoint at step 0" not in logs.messages or counts != {"knn": 2 * k1, "corr": 2 * k2}:
+            raise AssertionError(f"cli.eval on {name}: launches {made()}, want {2 * k1}, {2 * k2} (first call "
+                                 "untimed, then timed)")
+        for k in counts:
+            paths["realworld_cli_eval"][k] += counts[k]
+        fps = summary["fps"]
+        log(f"data path (e) cli.eval on {name} ({dp.video.shape[0]} views x {dp.video.shape[1]} frames x "
+            f"{REAL_H}x{REAL_W}, {dp.query_points_3d.shape[0]} tracks + 5x5 support points a view, 384x512, 6 "
+            f"iterations, bf16): AJ {summary['all_any']['average_jaccard']:.3f}, OA "
+            f"{summary['all_any']['occlusion_accuracy']:.3f}, ATE {summary['all_any']['ate_visible']:.3f}; timed "
+            f"request {dp.video.shape[1] / fps * 1e3:.2f} ms ({fps:.2f} fps); launches {counts}; {eval_s:.1f} s "
+            f"[{smi}]")
+    exact = medium_fp32("cuda").eval()
+    exact.load_state_dict(medium.state_dict())
+    del medium
+    with torch.no_grad(), fp32_precision(exact=True):
+        for name in ("panoptic-multiview", "dexycb-multiview"):
+            dp = dataset_from_name(name, str(rroot))[0]
+            out = EvaluationPredictor(exact)(*request_args(dp))
+            check_plain(exact, {}, [dp], {dp.seq_name: (to_host(out["traj"]), to_host(out["vis"]))},
+                        SEEDED_PLAIN_LIMITS, f"data path (e) {name} at the defaults, fp32, exact kNN")
+    log(f"data path (e) real-world formats: {time.perf_counter() - t0:.1f} s [{smi}]")
+    del exact
+    tmp.cleanup()
+    return paths
+
+
 def main() -> int:
     import argparse
 
@@ -1757,7 +2251,7 @@ def main() -> int:
     parser.add_argument("--release", default=None,
                         help="release checkpoint (flax msgpack) for phases 9 and 10, held against the golden outputs")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases to run (of 2 to 10; 8 runs with 7) for a quicker check of one "
+                        help="comma-separated phases to run (of 2 to 11; 8 runs with 7) for a quicker check of one "
                              "part; such a run prints no kernels line and no result line")
     cli = parser.parse_args()
     only = None if cli.phases is None else {int(x) for x in cli.phases.split(",")}
@@ -1810,6 +2304,11 @@ def main() -> int:
         t0 = time.perf_counter()
         options = phase_options(torch, smi, knn_ops, corr_ops, cli.release)
         log(f"phase 10 (options, warm start, config CLIs) took {time.perf_counter() - t0:.1f} s [{smi}]")
+    if wanted(11):
+        t0 = time.perf_counter()
+        data_path = phase_data_path(torch, smi, knn_ops, corr_ops)
+        log(f"phase 11 (native data path, augmented training, crash replay, real dataset formats) took "
+            f"{time.perf_counter() - t0:.1f} s [{smi}]")
     if only is not None:
         log(f"partial run of phases {sorted(only)} passed; no kernels line and no result line")
         return 0
@@ -1817,7 +2316,7 @@ def main() -> int:
     # Each path was driven with the counts at 0 just before it; every kernel
     # of a path must have been launched in that path's run.
     paths = {"serving": serving, "training": training, "large_cloud": large, "direct_knn": direct,
-             "evaluation": evaluation, **options}
+             "evaluation": evaluation, **options, **data_path}
     for path, counts in paths.items():
         idle = [key for key, count in counts.items() if count == 0]
         if idle:
@@ -1854,7 +2353,8 @@ def main() -> int:
         "train step's backward (corr_select_backward), of one large-cloud request (knn_tiled) or of one direct call "
         f"(knn_exact); launches: the 3 requests of the serving path, the {TRAIN_STEPS} steps of the training path, "
         f"the {LARGE_REQUESTS} requests of the large-cloud path, the 3 calls of the direct path, the 16 requests "
-        "of the release protocol (evaluation) and the paths of phase 10 (options_*, config_*, serving_cli)")
+        "of the release protocol (evaluation), the paths of phase 10 (options_*, config_*, serving_cli) and of phase "
+        "11 (augmented_train, crash_replay, kubric_cli_train, realworld_cli_eval)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

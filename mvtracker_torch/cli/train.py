@@ -7,7 +7,7 @@ the counterpart of `mvtracker_tpu/cli/train.py` with the same arguments and
 
 Trains on one device. `MVTRACKER_DISTRIBUTED=1` and a config that asks for
 a mesh of more than one device raise until data parallelism is ported
-(ROADMAP item 6).
+(ROADMAP A.5).
 """
 
 from __future__ import annotations
@@ -18,13 +18,13 @@ import os
 
 
 def check_single_device(cfg) -> None:
-    """Raise for the multi-process and multi-device settings (ROADMAP item 6)."""
+    """Raise for the multi-process and multi-device settings (ROADMAP A.5)."""
     if os.environ.get("MVTRACKER_DISTRIBUTED", "0") == "1":
-        raise NotImplementedError("MVTRACKER_DISTRIBUTED=1: multi-process training is not ported yet (ROADMAP item 6)")
+        raise NotImplementedError("MVTRACKER_DISTRIBUTED=1: multi-process training is not ported yet (ROADMAP A.5)")
     if (cfg.mesh_data or 1) > 1 or cfg.mesh_model > 1 or cfg.shard_views:
         raise NotImplementedError(
             f"a device mesh (mesh_data={cfg.mesh_data}, mesh_model={cfg.mesh_model}, shard_views={cfg.shard_views}) "
-            "is not ported yet (ROADMAP item 6); the port trains on one device"
+            "is not ported yet (ROADMAP A.5); the port trains on one device"
         )
 
 

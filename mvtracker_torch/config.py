@@ -6,20 +6,16 @@ the trainer section is the port's `TrainConfig`.
 What the port does with the settings:
 - `build_model` builds `mvtracker` (the port's `MVTracker`) and `copycat`.
   The other families raise `NotImplementedError` naming their `ROADMAP.md`
-  item. `transformer_scan_unroll` is accepted at any value and ignored: the
-  port runs the update transformer's layers as separate modules, with no
-  scan to unroll. `corr_backend` picks among the JAX package's correlation
+  item (A.4). `transformer_scan_unroll` is accepted at any value and
+  ignored: the port runs the update transformer's layers as separate
+  modules, with no scan to unroll. `corr_backend` picks among the JAX package's correlation
   implementations; the port has one (the CUDA kernel on the card, its plain
   version on the CPU), so only "auto" is accepted.
-- `build_dataset` builds `synthetic`; `kubric`, `droid` and the
-  `-multiview` names raise `NotImplementedError` (the real datasets,
-  ROADMAP item 4).
-- The trainer's TensorBoard, W&B, profiler and watchdog settings are off
-  in the port by default and raise when turned on (ROADMAP item 5); the
-  JAX package turns `tensorboard` and the watchdog (`watchdog_timeout_s`
-  600) on by default.
+- `build_dataset` builds `synthetic`, `kubric` and the `-multiview` names
+  (Kubric, Panoptic Studio, DexYCB); `droid` raises `NotImplementedError`
+  (ROADMAP A.6: it needs `droid/depth_video.py` and `droid/transforms.py`).
 - `mesh_data`, `mesh_model` and `shard_views` ask for a device mesh, which
-  waits for ROADMAP item 6; the CLIs raise when one asks for more than one
+  waits for ROADMAP A.5; the CLIs raise when one asks for more than one
   device.
 """
 
@@ -175,9 +171,9 @@ def format_config_tree(cfg: Config) -> str:
 # Families of the JAX package's `build_model` that the port does not build
 # yet, with the ROADMAP item that ports them.
 _FAMILIES_NOT_PORTED = {
-    "spatracker_multiview": "item 7 (spatracker.py with ops/splat.py)",
-    "cotracker2d": "item 7 (cotracker2d.py, monocular.py)",
-    **{name: "item 7 (monocular.py, hub_baselines.py)" for name in (
+    "spatracker_multiview": "A.4 (spatracker.py with ops/splat.py)",
+    "cotracker2d": "A.4 (cotracker2d.py, monocular.py)",
+    **{name: "A.4 (monocular.py, hub_baselines.py)" for name in (
         "cotracker1_offline", "cotracker1_online", "cotracker2_offline", "cotracker2_online",
         "cotracker3_offline", "cotracker3_online", "locotrack", "scenetracker", "delta", "spatialtrackerv2",
         "tapip3d", "spatracker_monocular", "monocular_nn",
@@ -225,6 +221,19 @@ def build_dataset(dc: DataConfig):
             width=dc.width,
             n_tracks=dc.num_tracks,
         )
-    if dc.dataset in ("kubric", "droid") or "-multiview" in dc.dataset:
-        raise NotImplementedError(f"dataset {dc.dataset!r} is not ported yet: ROADMAP item 4 (the real datasets)")
+    if dc.dataset == "kubric":
+        from mvtracker_torch.datasets.kubric import KubricMultiViewDataset
+
+        return KubricMultiViewDataset(dc.root, view_subset=dc.view_subset, num_tracks=dc.num_tracks, seed=dc.seed)
+    if dc.dataset == "droid":
+        raise NotImplementedError(
+            "dataset 'droid' is not ported yet: ROADMAP A.6 (datasets/droid.py with droid/depth_video.py and "
+            "droid/transforms.py)"
+        )
+    if "-multiview" in dc.dataset:
+        # The dataset-name grammar of the reference's `from_name` factories,
+        # e.g. "kubric-multiview-v3-views0_1_2_3-noise2cm", "panoptic-multiview".
+        from mvtracker_torch.datasets.real_world import dataset_from_name
+
+        return dataset_from_name(dc.dataset, dc.root)
     raise ValueError(f"unknown dataset: {dc.dataset}")

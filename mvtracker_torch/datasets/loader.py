@@ -7,19 +7,22 @@ iterator is *stateful*: its position (epoch, cursor, RNG) can be saved and
 restored with checkpoints, mirroring the reference's dataloader
 statefulness (`cli/train.py:52,546`).
 
-A copy of `PrefetchLoader` and `SyntheticSceneDataset` from
-`mvtracker_tpu/datasets/loader.py` (the port imports nothing of that
-package). The train-time augmentations are not
-ported: `SyntheticSceneDataset(augment=True)` raises. The per-process
-slicing of the permutation waits for the data-parallel mesh, and the
-on-disk scene cache for a dataset that needs it.
+A copy of `PrefetchLoader`, `SyntheticSceneDataset` (with its train-time
+augmentations and on-disk scene cache) and `compress_batch_for_transfer`
+from `mvtracker_tpu/datasets/loader.py` (the port imports nothing of that
+package). The per-process slicing of the permutation waits for the
+data-parallel mesh (ROADMAP A.5), `MonocularProxyDataset` for the 2D
+trackers (A.4).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 import queue
 import threading
-from typing import Iterator
+import zipfile
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -137,6 +140,13 @@ class SyntheticSceneDataset:
     Stands in for the Kubric training set in hermetic environments; the
     per-index seeding mirrors the reference's per-sample seeded RNG
     (`kubric_multiview_dataset.py:475-484`).
+
+    `augment=True` runs `default_train_augmentations` on every touch with a
+    fresh, unseeded generator, as the JAX package does (the reference's
+    train-time augmentations are unseeded too). `disk_cache_dir` keeps the
+    rendered scenes as `scene_<seed>.npz` files, keyed by the scene's seed:
+    a restarted run reads them instead of rendering again (a change of the
+    renderer's parameters needs a fresh directory).
     """
 
     def __init__(
@@ -146,33 +156,81 @@ class SyntheticSceneDataset:
         cache: bool = False,
         randomize: bool = False,
         augment: bool = False,
+        disk_cache_dir: Optional[str] = None,
         **render_kwargs,
     ):
         self.n_scenes = n_scenes
         self.seed = seed
         self.randomize = randomize
-        if augment:
-            raise NotImplementedError("SyntheticSceneDataset: the train-time augmentations are not ported yet")
+        self.augment = augment
         self.render_kwargs = render_kwargs
         self._cache: dict[int, Datapoint] = {} if cache else None
+        self._disk_dir = disk_cache_dir
+        if disk_cache_dir:
+            os.makedirs(disk_cache_dir, exist_ok=True)
 
     def __len__(self):
         return self.n_scenes
+
+    def _disk_path(self, scene_seed: int) -> str:
+        return os.path.join(self._disk_dir, f"scene_{scene_seed}.npz")
+
+    def _disk_load(self, scene_seed: int) -> Optional[Datapoint]:
+        path = self._disk_path(scene_seed)
+        if not os.path.exists(path):
+            return None
+        try:
+            with np.load(path, allow_pickle=False) as z:
+                return Datapoint(**{k: z[k] for k in z.files if k != "seq_name"}, seq_name=f"synthetic_{scene_seed}")
+        except (OSError, ValueError, EOFError, zipfile.BadZipFile):  # a truncated file: render again
+            return None
+
+    def _disk_save(self, scene_seed: int, dp: Datapoint) -> None:
+        arrays = {
+            f.name: getattr(dp, f.name) for f in dataclasses.fields(dp) if isinstance(getattr(dp, f.name), np.ndarray)
+        }
+        # np.savez appends ".npz" to a name without it: keep the suffix so
+        # the temporary path is the file savez writes.
+        tmp = self._disk_path(scene_seed) + f".tmp{os.getpid()}.{threading.get_ident()}.npz"
+        np.savez(tmp, **arrays)
+        os.replace(tmp, self._disk_path(scene_seed))  # a reader never sees half a file
 
     def __getitem__(self, idx: int) -> Datapoint:
         scene_seed = self.seed * 100_003 + idx
         if self._cache is not None and idx in self._cache:
             dp = self._cache[idx]
         else:
-            from mvtracker_torch.datasets.synthetic import render_scene
+            dp = self._disk_load(scene_seed) if self._disk_dir else None
+            if dp is None:
+                from mvtracker_torch.datasets.synthetic import render_scene
 
-            kwargs = dict(self.render_kwargs)
-            if self.randomize:
-                srng = np.random.default_rng(scene_seed + 17)
-                kwargs.setdefault("n_objects", int(srng.integers(3, 9)))
-                kwargs.setdefault("static_fraction", float(srng.uniform(0.0, 0.5)))
-                kwargs.setdefault("cam_radius", float(srng.uniform(3.0, 5.0)))
-            dp = render_scene(seed=scene_seed, **kwargs)
+                kwargs = dict(self.render_kwargs)
+                if self.randomize:
+                    srng = np.random.default_rng(scene_seed + 17)
+                    kwargs.setdefault("n_objects", int(srng.integers(3, 9)))
+                    kwargs.setdefault("static_fraction", float(srng.uniform(0.0, 0.5)))
+                    kwargs.setdefault("cam_radius", float(srng.uniform(3.0, 5.0)))
+                dp = render_scene(seed=scene_seed, **kwargs)
+                if self._disk_dir:
+                    self._disk_save(scene_seed, dp)
             if self._cache is not None:
                 self._cache[idx] = dp
+        if self.augment:
+            from mvtracker_torch.datasets.augmentations import default_train_augmentations
+
+            dp = default_train_augmentations(dp, np.random.default_rng())
         return dp
+
+
+def compress_batch_for_transfer(batch: dict) -> dict:
+    """Shrink a batch for the host-to-device copy: rgbs (0..255 floats)
+    become uint8 and float32 depths float16. The train step casts both back
+    to float32 on the device (`training/step.py::scene_loss`). uint8
+    rounding loses under 0.5/255 of photometric precision; float16 depth
+    carries about 0.05% relative error."""
+    out = dict(batch)
+    if "rgbs" in out and out["rgbs"].dtype != np.uint8:
+        out["rgbs"] = np.clip(np.rint(out["rgbs"]), 0, 255).astype(np.uint8)
+    if "depths" in out and out["depths"].dtype == np.float32:
+        out["depths"] = out["depths"].astype(np.float16)
+    return out

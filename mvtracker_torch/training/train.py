@@ -20,13 +20,17 @@
   layout, and a uniform-k input projection widened to
   `corr_neighbors_per_level`), strict or with a non-strict fallback;
 - an evaluation hook (`eval_fn` every `eval_freq` steps) and a
-  static-pretrain iterator for the first `static_pretrain_steps` steps.
+  static-pretrain iterator for the first `static_pretrain_steps` steps;
+- observability: TensorBoard scalars under `<exp_dir>/tb` (through
+  `torch.utils.tensorboard`; off with a warning when it cannot be
+  imported), W&B mirroring (off with a warning when `wandb` is absent), a
+  `torch.profiler` trace window under `<exp_dir>/profile`, a faulthandler
+  hang watchdog (a long first deadline, re-armed after every step and
+  around checkpoints and evaluations, cancelled when `fit` ends), and the
+  GPU's memory in the telemetry.
 
-Not ported yet (ROADMAP item 5): TensorBoard and W&B, the profiler window,
-the hang watchdog, crash replay, and the device mesh. Their settings keep
-the JAX names; the port's defaults leave them off (`tensorboard` and
-`watchdog_timeout_s` are on by default in the JAX package), and turning one
-on raises `NotImplementedError`.
+Crash batches are replayed with `training/replay.py`. The device mesh waits
+for ROADMAP A.5.
 """
 
 from __future__ import annotations
@@ -44,13 +48,13 @@ import torch
 
 from mvtracker_torch import convert
 from mvtracker_torch.training import step as step_lib
+from mvtracker_torch.utils import observability as obs
 
 
 @dataclasses.dataclass
 class TrainConfig:
     """The trainer's settings; names, order and defaults are the JAX
-    package's, but for the settings the port does not implement, which are
-    off here (`_NOT_PORTED`)."""
+    package's."""
 
     total_steps: int = 200_000
     lr: float = 5e-4
@@ -70,17 +74,22 @@ class TrainConfig:
     adaptive_iters: bool = True
     keep_ckpts: int = 3
     static_pretrain_steps: int = 0  # the first N steps draw from `fit`'s static_data_iter
-    tensorboard: bool = False  # not ported
-    watchdog_timeout_s: float = 0.0  # not ported
-    watchdog_exit: bool = False  # not ported
-    watchdog_first_deadline_s: float = 1800.0
+    tensorboard: bool = True  # per-step scalars to <exp_dir>/tb
+    # Hang watchdog: dump every thread's stack if a step makes no progress
+    # for this long; 0 disables. With watchdog_exit the process ends after
+    # the dump, for runs a supervisor restarts from the newest checkpoint.
+    watchdog_timeout_s: float = 600.0
+    watchdog_exit: bool = False
+    watchdog_first_deadline_s: float = 1800.0  # the first step's deadline (cold kernel builds)
     # Reprojection round-trip guard: warn per offending step, raise after
     # this many in a row. atol 0 disables.
     reproj_guard_atol: float = 1.0
     reproj_guard_patience: int = 5
-    wandb: bool = False  # not ported
+    wandb: bool = False  # mirror the TensorBoard stream to Weights & Biases
     wandb_project: str = "mvtracker_tpu"
-    profile_start_step: int = -1  # not ported
+    # torch.profiler trace of profile_n_steps steps from profile_start_step
+    # into <exp_dir>/profile; -1 disables.
+    profile_start_step: int = -1
     profile_n_steps: int = 3
     # Weights to start from (a flax .msgpack or a torch .pth/.pt), applied
     # non-strictly in `fit` when the experiment has no checkpoint yet. "" = none.
@@ -88,17 +97,6 @@ class TrainConfig:
     # Fetch the loss (a device synchronisation) only every N steps, so the
     # host can run ahead of the device; the guards then see every Nth step.
     sync_every: int = 1
-
-
-# Trainer settings of the JAX package that the port does not implement, with
-# the value that leaves each off.
-_NOT_PORTED = {
-    "tensorboard": False,
-    "wandb": False,
-    "profile_start_step": -1,
-    "watchdog_timeout_s": 0.0,
-    "watchdog_exit": False,
-}
 
 
 def augment_train_iters(step: int, cfg: TrainConfig, rng: np.random.Generator) -> int:
@@ -121,11 +119,6 @@ _CKPT_NAME = re.compile(r"step_(\d+)\.pt$")
 
 class Trainer:
     def __init__(self, model, cfg: TrainConfig):
-        for name, off in _NOT_PORTED.items():
-            if getattr(cfg, name) != off:
-                raise NotImplementedError(
-                    f"TrainConfig.{name}={getattr(cfg, name)!r} is not ported yet (ROADMAP item 5); leave it at {off!r}"
-                )
         self.model = model
         self.cfg = cfg
         self.optimizer = step_lib.make_optimizer(
@@ -137,6 +130,27 @@ class Trainer:
         )
         self._steps = {}  # iters -> train step
         self._stop_requested = False
+        self._tb = None
+        self.profile_trace: Optional[str] = None  # the path of the last profiler window's trace
+
+    def _tb_writer(self):
+        if self._tb is None and self.cfg.tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError as e:
+                logging.warning("tensorboard requested but unavailable (%s); continuing without", e)
+                self.cfg.tensorboard = False
+                return None
+            self._tb = SummaryWriter(os.path.join(self.cfg.exp_dir, "tb"))
+        return self._tb
+
+    def _watchdog(self, first: bool = False) -> None:
+        """(Re-)arm the hang watchdog: the long deadline for the first step
+        and for checkpoint and evaluation blocks, else the per-step one."""
+        cfg = self.cfg
+        if cfg.watchdog_timeout_s > 0:
+            timeout = max(cfg.watchdog_timeout_s, cfg.watchdog_first_deadline_s) if first else cfg.watchdog_timeout_s
+            obs.reset_hang_watchdog(timeout, exit=cfg.watchdog_exit)
 
     # -- checkpointing -------------------------------------------------
     @property
@@ -333,8 +347,24 @@ class Trainer:
         step = start_step
         reproj_bad_streak = 0
         batch = None
+        profiler = None
+        if cfg.profile_start_step >= 0:
+            profiler = obs.ProfilerTraceWindow(
+                os.path.join(cfg.exp_dir, "profile"), start=cfg.profile_start_step, n_steps=cfg.profile_n_steps)
+        self._watchdog(first=True)  # the first step builds the kernels
+        wandb_run = None
+        if cfg.wandb:
+            try:
+                import wandb
+
+                wandb_run = wandb.init(project=cfg.wandb_project, dir=cfg.exp_dir, config=dataclasses.asdict(cfg),
+                                       sync_tensorboard=True)
+            except Exception as e:  # absent, or no way to reach its service: train on without it
+                logging.warning("wandb requested but unavailable (%s); continuing without", e)
         try:
             while step < total and not self._stop_requested:
+                if profiler is not None:
+                    profiler.step(step)
                 t0 = time.perf_counter()
                 use_static = static_data_iter is not None and step < cfg.static_pretrain_steps
                 batch = next(static_data_iter if use_static else data_iter)
@@ -357,6 +387,7 @@ class Trainer:
                 data_times.append(t1 - t0)
                 step_times.append(t2 - t1)
                 step += 1
+                self._watchdog()
                 if on_step is not None:
                     on_step(step, metrics)
                 if not do_sync:
@@ -381,7 +412,19 @@ class Trainer:
                     else:
                         reproj_bad_streak = 0
 
+                tb = self._tb_writer()
+                if tb is not None:
+                    tb.add_scalar("train/loss", loss, step)
+                    for k in ("xyz_loss", "vis_loss", "grad_norm"):
+                        if k in metrics:
+                            tb.add_scalar(f"train/{k}", float(metrics[k]), step)
+
                 if step % cfg.telemetry_freq == 0:
+                    mem = obs.device_memory_stats()
+                    if mem:
+                        logging.info("step %d device memory (MiB): %s", step, mem)
+                        if tb is not None:
+                            tb.add_scalar("sys/peak_hbm_mb", max(m["peak_bytes_in_use_mb"] for m in mem.values()), step)
                     dt, st = np.asarray(data_times), np.asarray(step_times)
                     logging.info(
                         "step %d loss=%.4f xyz=%.4f vis=%.4f grad_norm=%.4f | data %.0f/%.0f/%.0f ms "
@@ -392,10 +435,17 @@ class Trainer:
                         st.mean() * 1e3, np.median(st) * 1e3, st.std() * 1e3,
                     )
                     data_times, step_times = [], []
+                # Checkpoints and evaluations may outlast a step's deadline:
+                # the long deadline holds for their duration.
+                long_block = step % cfg.save_ckpt_freq == 0 or (eval_fn is not None and step % cfg.eval_freq == 0)
+                if long_block:
+                    self._watchdog(first=True)
                 if step % cfg.save_ckpt_freq == 0:
                     self.save(state, step)
                 if eval_fn is not None and step % cfg.eval_freq == 0:
                     eval_fn(state, step)
+                if long_block:
+                    self._watchdog()
         except Exception:
             # Crash forensics: two best-effort saves, each on its own, so a
             # failed batch dump (or no batch at all, when the first fetch
@@ -412,6 +462,16 @@ class Trainer:
             except Exception:
                 logging.exception("failed to save the crash checkpoint")
             raise
+        finally:
+            if profiler is not None:
+                profiler.close(step - 1)
+                self.profile_trace = profiler.path
+            if cfg.watchdog_timeout_s > 0:
+                obs.cancel_hang_watchdog()
+            if self._tb is not None:
+                self._tb.flush()
+            if wandb_run is not None:
+                wandb_run.finish()
 
         if self._stop_requested:
             self.save(state, step)

@@ -1,15 +1,16 @@
 """The port's config system and its config-driven CLIs against the JAX
 package's (`mvtracker_tpu/config.py`, `cli/{train,eval,serve}.py`) on the
 CPU: every shipped model preset loads to the same settings and builds a
-port model, overrides parse alike, unported families, datasets and trainer
-settings raise, `Trainer.fit`'s evaluation hook and static-pretrain
-iterator, `python -m mvtracker_torch.cli.train` then `cli.eval` on one
+port model, overrides parse alike, unported families and the DROID dataset
+raise, the real datasets build, every trainer setting runs, `Trainer.fit`'s
+evaluation hook and static-pretrain iterator, `python -m mvtracker_torch.cli.train` then `cli.eval` on one
 experiment directory, and the server's answers against the predictor."""
 
 import dataclasses
 import io
 import json
 import logging
+import os
 import threading
 import urllib.request
 from pathlib import Path
@@ -30,14 +31,15 @@ from mvtracker_torch.scene import make_scene
 from mvtracker_torch.training import step as step_lib
 from mvtracker_torch.training.train import TrainConfig, Trainer
 from mvtracker_tpu import config as j_config
+from mvtracker_tpu.datasets import synthetic as j_synth
+from tests.test_kubric_loader import write_kubric_scene
+from tests.test_real_world_datasets import write_panoptic_scene
+from tests.test_torch_augmentations import assert_same_datapoint
 from tests.test_torch_training import config as train_config
 from tests.test_torch_training import tiny_loader, tiny_model
 
 ROOT = Path(__file__).resolve().parent.parent
 PRESETS = sorted(str(p.relative_to(ROOT)) for p in ROOT.glob("configs/mvtracker*.yaml")) + ["configs/overfit.yaml"]
-# The port leaves these trainer settings off by default (not ported); the
-# JAX package turns them on.
-JAX_ONLY_DEFAULTS = {"tensorboard", "watchdog_timeout_s"}
 # configs/overfit.yaml narrowed to a few seconds of CPU work.
 TINY = [
     "model.sliding_window_len=4", "model.fmaps_dim=16", "model.num_heads=2", "model.hidden_size=32",
@@ -58,15 +60,12 @@ def single_intra_op_thread():
 
 @pytest.mark.parametrize("path", PRESETS)
 def test_preset_loads_like_jax_and_builds(path):
-    """Every section of the resolved config equals the JAX package's (the
-    trainer's but for the two settings the port leaves off), and the model
-    builds with no NotImplementedError."""
+    """Every section of the resolved config equals the JAX package's, the
+    trainer's too, and the model builds with no NotImplementedError."""
     got, want = t_config.load_config(str(ROOT / path)), j_config.load_config(str(ROOT / path))
     for section in ("model", "data", "eval"):
         assert dataclasses.asdict(getattr(got, section)) == dataclasses.asdict(getattr(want, section)), section
-    g, w = dataclasses.asdict(got.trainer), dataclasses.asdict(want.trainer)
-    assert set(g) == set(w)
-    assert {k for k in g if g[k] != w[k]} <= JAX_ONLY_DEFAULTS
+    assert dataclasses.asdict(got.trainer) == dataclasses.asdict(want.trainer)
     assert (got.mesh_data, got.mesh_model, got.shard_views) == (want.mesh_data, want.mesh_model, want.shard_views)
     model = t_config.build_model(got.model, device="cpu")
     assert isinstance(model, MVTracker)
@@ -95,13 +94,11 @@ def test_format_config_tree_matches_jax():
     cfg = t_config.load_config(str(ROOT / "configs/overfit.yaml"))
     lines = t_config.format_config_tree(cfg).splitlines()
     want = j_config.format_config_tree(j_config.load_config(str(ROOT / "configs/overfit.yaml"))).splitlines()
-    assert len(lines) == len(want) and lines[0] == "config"
-    differ = [(a, b) for a, b in zip(lines, want) if a != b]
-    assert all(any(k in a for k in JAX_ONLY_DEFAULTS) for a, _ in differ), differ
+    assert lines[0] == "config" and lines == want
 
 
 @pytest.mark.parametrize("name,item", [
-    ("spatracker_multiview", "item 7"), ("cotracker2d", "item 7"), ("delta", "item 7"), ("monocular_nn", "item 7"),
+    ("spatracker_multiview", "A.4"), ("cotracker2d", "A.4"), ("delta", "A.4"), ("monocular_nn", "A.4"),
 ])
 def test_unported_families_raise(name, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -123,19 +120,61 @@ def test_config_model_options():
 
 
 @pytest.mark.parametrize("dataset", ["kubric", "droid", "panoptic-multiview"])
-def test_unported_datasets_raise(dataset):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        t_config.build_dataset(t_config.DataConfig(dataset=dataset))
+def test_unported_datasets_raise(tmp_path, dataset):
+    """`droid` still raises, naming ROADMAP A.6; `kubric` and the
+    `-multiview` names build on a fixture and give the JAX package's
+    `build_dataset`'s scenes."""
+    if dataset == "droid":
+        with pytest.raises(NotImplementedError, match="A.6"):
+            t_config.build_dataset(t_config.DataConfig(dataset=dataset))
+        return
+    scene = j_synth.render_scene(seed=3, n_views=2, n_frames=3, height=32, width=40, n_tracks=10)
+    if dataset == "kubric":
+        write_kubric_scene(scene, str(tmp_path / "scene_000"))
+    else:
+        write_panoptic_scene(scene, str(tmp_path / "panoptic-multiview" / "seq0"))
+    dc = dict(dataset=dataset, root=str(tmp_path), num_tracks=6)
+    got, want = t_config.build_dataset(t_config.DataConfig(**dc)), j_config.build_dataset(j_config.DataConfig(**dc))
+    assert type(got).__name__ == type(want).__name__ and len(got) == len(want) == 1
+    assert_same_datapoint(got[0], want[0])
 
 
 @pytest.mark.parametrize("name,on", [
     ("tensorboard", True), ("wandb", True), ("profile_start_step", 1), ("watchdog_timeout_s", 600.0),
     ("watchdog_exit", True),
 ])
-def test_unported_trainer_settings_raise(tmp_path, name, on):
-    Trainer(tiny_model(), train_config(tmp_path))  # the defaults are accepted
-    with pytest.raises(NotImplementedError, match=name):
-        Trainer(tiny_model(), train_config(tmp_path, **{name: on}))
+def test_unported_trainer_settings_raise(tmp_path, monkeypatch, caplog, name, on):
+    """Each of the JAX trainer's observability settings now runs in `fit`:
+    TensorBoard writes its events, W&B turns off with a warning where the
+    package is absent, the profiler writes a trace, and the watchdog is
+    armed (the first step's long deadline, then the per-step one), re-armed
+    and cancelled, with `watchdog_exit` passed on to faulthandler (recorded
+    here instead of armed, so no timer outlives the test)."""
+    from mvtracker_torch.training import train as t_train_mod
+
+    arms, cancels = [], []
+    monkeypatch.setattr(t_train_mod.obs, "reset_hang_watchdog", lambda timeout, exit=False: arms.append((timeout, exit)))
+    monkeypatch.setattr(t_train_mod.obs, "cancel_hang_watchdog", lambda: cancels.append(True))
+    off = dict(tensorboard=False, wandb=False, profile_start_step=-1, watchdog_timeout_s=0.0, watchdog_exit=False)
+    cfg = train_config(tmp_path, **{**off, name: on})
+    if name == "watchdog_exit":
+        cfg.watchdog_timeout_s = 5.0
+    with caplog.at_level(logging.WARNING):
+        Trainer(tiny_model(), cfg).fit(iter(tiny_loader()), max_steps=3)
+    exp = Path(cfg.exp_dir)
+    assert (exp / "tb").exists() == (name == "tensorboard")
+    if name == "tensorboard":
+        assert any(p.name.startswith("events.out.tfevents") for p in (exp / "tb").iterdir())
+    wandb_warned = any("wandb requested but unavailable" in r.getMessage() for r in caplog.records)
+    assert wandb_warned == (name == "wandb")
+    traces = sorted(os.listdir(exp / "profile")) if (exp / "profile").exists() else []
+    assert traces == (["trace_steps1-2.json"] if name == "profile_start_step" else [])
+    if name.startswith("watchdog"):
+        first, exit_flag = max(cfg.watchdog_timeout_s, cfg.watchdog_first_deadline_s), name == "watchdog_exit"
+        assert arms == [(first, exit_flag)] + [(cfg.watchdog_timeout_s, exit_flag)] * 3
+        assert cancels == [True]
+    else:
+        assert arms == [] and cancels == []
 
 
 def test_fit_hooks(tmp_path):
@@ -196,7 +235,7 @@ def test_cli_refuses_more_than_one_device(monkeypatch, argv, env):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     for main in (t_train.main, t_eval.main):
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(NotImplementedError, match="A.5"):
             main(["--device", "cpu", *argv])
 
 

@@ -11,9 +11,12 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-# msgpack and sklearn are absent on the GPU host: a port module importing
-# either would fail only there.
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mvtracker_tpu", "msgpack", "sklearn")
+# msgpack, sklearn, OpenCV, Pillow and tifffile are absent on the GPU host: a
+# port module importing one would fail only there. imageio too; it may be
+# imported only where `IMAGEIO_ALLOWED` says (`test_imageio_only_behind_image_io`).
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mvtracker_tpu", "msgpack", "sklearn", "cv2", "PIL",
+             "tifffile")
+IMAGEIO_ALLOWED = ROOT / "mvtracker_torch" / "datasets" / "image_io.py"
 
 
 def _port_files():
@@ -34,6 +37,22 @@ def test_port_imports_nothing_of_jax(path):
     cannot tell)."""
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_imageio_only_behind_image_io():
+    """imageio is imported by `datasets/image_io.py` alone (for JPEG), inside
+    a `try` whose `except ImportError` handler raises naming the file."""
+    users = [p for p in _port_files() if any(m.split(".")[0] == "imageio" for m in _imported_modules(p))]
+    assert users == [IMAGEIO_ALLOWED]
+    tree = ast.parse(IMAGEIO_ALLOWED.read_text())
+    guarded = [
+        node for node in ast.walk(tree) if isinstance(node, ast.Try)
+        and any(isinstance(n, ast.Import) and n.names[0].name.startswith("imageio") for n in node.body)
+        and any(isinstance(h.type, ast.Name) and h.type.id == "ImportError" for h in node.handlers)
+        and all(any(isinstance(n, ast.Raise) for n in ast.walk(h)) for h in node.handlers)
+    ]
+    imports = [n for n in ast.walk(tree) if isinstance(n, ast.Import) and n.names[0].name.startswith("imageio")]
+    assert len(guarded) == len(imports) == 1
 
 
 def test_kernel_modules_import_without_nvcc(tmp_path):

@@ -63,8 +63,10 @@ def test_loader_and_scenes_equal_the_jax_packages():
     assert set(got) == set(want)
     for key in want:
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
-    with pytest.raises(NotImplementedError):
-        SyntheticSceneDataset(augment=True)
+    augmented = SyntheticSceneDataset(**DATA, augment=True)[0]  # a fresh unseeded generator per touch
+    plain = SyntheticSceneDataset(**DATA)[0]
+    assert augmented.video.shape == plain.video.shape and np.isfinite(augmented.video).all()
+    assert not np.array_equal(augmented.video, plain.video)
 
 
 def test_loader_shuffle_workers_and_prefetch_equal_the_jax_packages():
