@@ -4,8 +4,9 @@ the counterpart of `mvtracker_tpu/cli/eval.py` with the same arguments and
 
 Restores the newest checkpoint of `trainer.exp_dir` (the port's
 `torch.save` files under `<exp_dir>/checkpoints`; the initial weights with
-a warning when there is none) and evaluates over the configured dataset,
-printing the summary as JSON.
+a warning when there is none) into the model, or into the learned 2D
+tracker inside `cotracker2d`'s adapter, and evaluates over the configured
+dataset, printing the summary as JSON.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ def main(argv=None) -> dict:
 
     import torch
 
-    from mvtracker_torch.cli.train import check_single_device
+    from mvtracker_torch.cli.train import check_single_device, trainable_module
     from mvtracker_torch.config import build_dataset, build_model, load_config
     from mvtracker_torch.evaluation.evaluator import Evaluator
     from mvtracker_torch.evaluation.predictor import EvaluationPredictor
@@ -42,14 +43,15 @@ def main(argv=None) -> dict:
     model = build_model(cfg.model, device=args.device)
     dataset = build_dataset(cfg.data)
 
-    if isinstance(model, torch.nn.Module):  # CopyCat has no weights
-        trainer = Trainer(model, cfg.trainer)
+    module = trainable_module(model)
+    if module is not None:  # CopyCat, the NCC tracker and the hub wrappers have no checkpoint
+        trainer = Trainer(module, cfg.trainer)
         if trainer.latest_step() is None:
             logging.warning("no checkpoint found in %s; evaluating the initial weights", trainer.ckpt_dir)
         else:
-            _, step = trainer.restore_latest(step_lib.init_state(model, trainer.optimizer))
+            _, step = trainer.restore_latest(step_lib.init_state(module, trainer.optimizer))
             logging.info("evaluating checkpoint at step %d", step)
-        model.eval()
+        module.eval()
 
     predictor = EvaluationPredictor(
         model,

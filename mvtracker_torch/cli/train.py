@@ -8,6 +8,11 @@ the counterpart of `mvtracker_tpu/cli/train.py` with the same arguments and
 Trains on one device. `MVTRACKER_DISTRIBUTED=1` and a config that asks for
 a mesh of more than one device raise until data parallelism is ported
 (ROADMAP A.5).
+
+`cotracker2d` trains its learned 2D tracker on the configured dataset's
+monocular proxies (`MonocularProxyDataset`: one view per scene, pixel
+tracks) and evaluates it through the multi-view adapter; the
+monocular-baseline zoo has no weights to train here and raises.
 """
 
 from __future__ import annotations
@@ -28,6 +33,20 @@ def check_single_device(cfg) -> None:
         )
 
 
+def trainable_module(model):
+    """The module whose weights the trainer updates and the checkpoints
+    hold: the model itself, the learned 2D tracker inside the multi-view
+    adapter, or None (CopyCat, the NCC tracker, a hub wrapper)."""
+    import torch
+
+    from mvtracker_torch.models.cotracker2d import LearnedTracker2D
+
+    if isinstance(model, torch.nn.Module):
+        return model
+    tracker = getattr(model, "tracker_2d", None)
+    return tracker.model if isinstance(tracker, LearnedTracker2D) else None
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", default=None, help="YAML config preset")
@@ -41,7 +60,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
 
     from mvtracker_torch.config import build_dataset, build_model, format_config_tree, load_config
-    from mvtracker_torch.datasets.loader import PrefetchLoader, SyntheticSceneDataset
+    from mvtracker_torch.datasets.loader import MonocularProxyDataset, PrefetchLoader, SyntheticSceneDataset
     from mvtracker_torch.evaluation.evaluator import Evaluator
     from mvtracker_torch.evaluation.predictor import EvaluationPredictor
     from mvtracker_torch.training.train import Trainer
@@ -51,18 +70,24 @@ def main(argv=None):
     logging.info("resolved config:\n%s", format_config_tree(cfg))
 
     model = build_model(cfg.model, device=args.device)
+    module = trainable_module(model)
+    if module is None:
+        raise ValueError(f"model family {cfg.model.name!r} has no weights to train")
     dataset = build_dataset(cfg.data)
-    loader = PrefetchLoader(dataset, batch_size=cfg.data.batch_size, num_workers=cfg.data.num_workers,
+    train_data = dataset if module is model else MonocularProxyDataset(dataset)
+    loader = PrefetchLoader(train_data, batch_size=cfg.data.batch_size, num_workers=cfg.data.num_workers,
                             seed=cfg.data.seed)
 
     def eval_fn(state, step):
         """Evaluation every `trainer.eval_freq` steps on the training data
-        (2 sequences unless `eval.max_sequences` says otherwise)."""
+        (2 sequences unless `eval.max_sequences` says otherwise), through the
+        adapter for a 2D tracker."""
         predictor = EvaluationPredictor(
-            state.model,
+            model,  # the trained module itself, or the adapter around it
             interp_shape=tuple(cfg.eval.interp_shape) if cfg.eval.interp_shape else None,
             grid_size=cfg.eval.grid_size,
             n_iters=cfg.eval.n_iters,
+            device=args.device,
         )
         summary, _ = Evaluator(cfg.eval.setting).evaluate_sequence(
             predictor, dataset, max_sequences=cfg.eval.max_sequences or 2
@@ -71,7 +96,7 @@ def main(argv=None):
         return summary
 
     static_iter = None
-    if cfg.trainer.static_pretrain_steps > 0 and cfg.data.dataset == "synthetic":
+    if cfg.trainer.static_pretrain_steps > 0 and cfg.data.dataset == "synthetic" and module is model:
         static_ds = SyntheticSceneDataset(
             n_scenes=32, seed=cfg.data.seed + 1, n_views=cfg.data.n_views, n_frames=cfg.data.n_frames,
             height=cfg.data.height, width=cfg.data.width, n_tracks=cfg.data.num_tracks, static_fraction=1.0,
@@ -79,7 +104,7 @@ def main(argv=None):
         static_iter = iter(PrefetchLoader(static_ds, batch_size=cfg.data.batch_size,
                                           num_workers=cfg.data.num_workers))
 
-    trainer = Trainer(model, cfg.trainer)
+    trainer = Trainer(module, cfg.trainer)
     return trainer.fit(loader.prefetching_iter(), eval_fn=eval_fn, static_data_iter=static_iter)
 
 

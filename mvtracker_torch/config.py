@@ -4,9 +4,13 @@ overrides. A copy of the JAX module's dataclasses, loading and overrides;
 the trainer section is the port's `TrainConfig`.
 
 What the port does with the settings:
-- `build_model` builds `mvtracker` (the port's `MVTracker`) and `copycat`.
-  The other families raise `NotImplementedError` naming their `ROADMAP.md`
-  item (A.4). `transformer_scan_unroll` is accepted at any value and
+- `build_model` builds every family of the JAX package's: `mvtracker`,
+  `spatracker_multiview` (the triplane variant), `copycat`, `cotracker2d`
+  (the learned 2D tracker through the multi-view adapter, weights from
+  `checkpoint_2d` when it is set) and the monocular-baseline zoo (the hub
+  wrappers where torch.hub's cache holds them, otherwise the NCC tracker
+  through the same adapter, with a warning that names what is missing;
+  `_FAMILIES_NOT_PORTED` is empty). `transformer_scan_unroll` is accepted at any value and
   ignored: the port runs the update transformer's layers as separate
   modules, with no scan to unroll. `corr_backend` picks among the JAX package's correlation
   implementations; the port has one (the CUDA kernel on the card, its plain
@@ -59,7 +63,8 @@ class ModelConfig:
     vis_geom_features: bool = False
     vis_head_hidden: int = 0
     transformer_scan_unroll: int = 2  # ignored by the port
-    # None keeps the family's own default (0 for MVTracker).
+    # None keeps the family's own default (0 for MVTracker, 100 for the
+    # triplane SpaTracker).
     support_memory_tokens: Optional[int] = None
     use_point_transformer: bool = False
     point_transformer_depth: int = 2
@@ -169,40 +174,91 @@ def format_config_tree(cfg: Config) -> str:
 
 
 # Families of the JAX package's `build_model` that the port does not build
-# yet, with the ROADMAP item that ports them.
-_FAMILIES_NOT_PORTED = {
-    "spatracker_multiview": "A.4 (spatracker.py with ops/splat.py)",
-    "cotracker2d": "A.4 (cotracker2d.py, monocular.py)",
-    **{name: "A.4 (monocular.py, hub_baselines.py)" for name in (
-        "cotracker1_offline", "cotracker1_online", "cotracker2_offline", "cotracker2_online",
-        "cotracker3_offline", "cotracker3_online", "locotrack", "scenetracker", "delta", "spatialtrackerv2",
-        "tapip3d", "spatracker_monocular", "monocular_nn",
-    )},
-}
+# yet, with the ROADMAP item that ports them: none.
+_FAMILIES_NOT_PORTED: dict[str, str] = {}
+
+# The reference's monocular-baseline zoo: 2D trackers lifted to the 3D API.
+MONOCULAR_BASELINES = (
+    "cotracker1_offline", "cotracker1_online", "cotracker2_offline", "cotracker2_online",
+    "cotracker3_offline", "cotracker3_online", "locotrack", "scenetracker", "delta", "spatialtrackerv2",
+    "tapip3d", "spatracker_monocular", "monocular_nn",
+)
+
+
+def _model_kwargs(mc: ModelConfig, cls) -> dict:
+    """The config's settings that `cls`'s constructor (or the MVTracker
+    base's) takes; None keeps the family's own default."""
+    from mvtracker_torch.models.mvtracker import MVTracker
+
+    if mc.corr_backend != "auto":
+        raise NotImplementedError(
+            f"corr_backend={mc.corr_backend!r}: the port has one correlation (the CUDA kernel on the card, "
+            "its plain version on the CPU); leave it at 'auto'"
+        )
+    accepted = set()
+    for klass in (cls, MVTracker):
+        accepted |= set(inspect.signature(klass.__init__).parameters)
+    accepted -= {"self", "device", "kwargs", "not_ported"}
+    return {k: v for k, v in dataclasses.asdict(mc).items() if k in accepted and v is not None}
+
+
+def load_checkpoint_2d(model, path: str):
+    """Weights for the learned 2D tracker: a flax msgpack params file (the
+    JAX package's `checkpoint_2d`), or a torch file of the port's trainer
+    (its "model" entry) or of a bare state dict. Loaded strictly."""
+    import torch
+
+    from mvtracker_torch import convert
+
+    if path.endswith(".msgpack"):
+        tree = convert.migrate_updateformer_layout(convert.load_flax_msgpack(path))
+        sd = convert.params_from_flax(tree)
+    else:
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        sd = payload.get("model", payload)
+    model.load_state_dict({k: v.to(model.device) for k, v in sd.items()}, strict=True)
+    return model
 
 
 def build_model(mc: ModelConfig, device="cuda"):
-    """The model the config names, on `device` (MVTracker in eval mode
-    with its initial weights; CopyCat has none)."""
+    """The model the config names, on `device`: a tracker module in eval
+    mode with its initial weights, CopyCat (no weights), or a 2D tracker
+    inside `MonocularToMultiViewAdapter`."""
     if mc.name == "copycat":
         from mvtracker_torch.models.copycat import CopyCat
 
         return CopyCat()
-    if mc.name == "mvtracker":
-        from mvtracker_torch.models.mvtracker import MVTracker
+    if mc.name in ("mvtracker", "spatracker_multiview"):
+        if mc.name == "spatracker_multiview":
+            from mvtracker_torch.models.spatracker import MultiViewSpaTracker as cls
+        else:
+            from mvtracker_torch.models.mvtracker import MVTracker as cls
+        return cls(**_model_kwargs(mc, cls), device=device).eval()
+    if mc.name == "cotracker2d":
+        from mvtracker_torch.models.cotracker2d import CoTracker2D, LearnedTracker2D
+        from mvtracker_torch.models.monocular import MonocularToMultiViewAdapter
 
-        if mc.corr_backend != "auto":
-            raise NotImplementedError(
-                f"corr_backend={mc.corr_backend!r}: the port has one correlation (the CUDA kernel on the card, "
-                "its plain version on the CPU); leave it at 'auto'"
+        model2d = CoTracker2D(**_model_kwargs(mc, CoTracker2D), device=device).eval()
+        if mc.checkpoint_2d:
+            load_checkpoint_2d(model2d, mc.checkpoint_2d)
+        return MonocularToMultiViewAdapter(LearnedTracker2D(model2d), device=device)
+    if mc.name in MONOCULAR_BASELINES:
+        import logging
+
+        from mvtracker_torch.models.hub_baselines import load_monocular_hub_tracker
+        from mvtracker_torch.models.monocular import MonocularToMultiViewAdapter, SimpleNNTracker2D
+
+        try:
+            tracker = load_monocular_hub_tracker(mc.name, device=device)
+        except Exception as e:  # no hub cache, a vendored repo missing, or a name with no wrapper
+            # The weights are what is missing, not the device: the NCC
+            # tracker runs on `device` through the same adapter.
+            logging.warning(
+                "monocular baseline %r unavailable (%s); falling back to the in-repo NCC tracker through the same "
+                "adapter", mc.name, e,
             )
-        accepted = set(inspect.signature(MVTracker.__init__).parameters) - {"self", "device", "not_ported"}
-        kwargs = {
-            k: v
-            for k, v in dataclasses.asdict(mc).items()
-            if k in accepted | {"support_memory_tokens"} and v is not None
-        }
-        return MVTracker(**kwargs, device=device).eval()
+            tracker = SimpleNNTracker2D()
+        return MonocularToMultiViewAdapter(tracker, device=device)
     if mc.name in _FAMILIES_NOT_PORTED:
         raise NotImplementedError(f"model family {mc.name!r} is not ported yet: ROADMAP {_FAMILIES_NOT_PORTED[mc.name]}")
     raise ValueError(f"unknown model family: {mc.name}")

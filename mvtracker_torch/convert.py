@@ -11,12 +11,15 @@
   is named.
 - `params_from_flax(params)`: the JAX package's MVTracker params (nested
   dicts of numpy arrays, with or without the outer "params" key) -> a
-  state dict for `mvtracker_torch.models.mvtracker.MVTracker`. The port's
+  state dict for `mvtracker_torch.models.mvtracker.MVTracker`, or for the
+  variants that share its tree (`MultiViewSpaTracker`, `CoTracker2D`; the
+  update transformer's LoFTR memory `gnn` and `support_memory` too). The port's
   module names are the reference torch model's, so the JAX package's own
   `convert_reference_state_dict` maps the result straight back.
   The mapping is a fixed re-layout, so it carries any tree of that
   structure: a gradient tree, or AdamW's `mu` and `nu`.
-- `point_transformer_from_flax(params)`: the same for the point
+- `updateformer_from_flax(params)`, `point_transformer_from_flax(params)`:
+  the same for the update transformer alone, and for the point
   transformer alone (`params_from_flax` maps it inside a tracker's tree,
   under "cloud_backbone").
 - `opt_state_from_optax(opt_state)`: the optax state of the JAX package's
@@ -201,11 +204,29 @@ def _unstack(tree, i):
     return {k: _unstack(v, i) if isinstance(v, dict) else np.asarray(v)[i] for k, v in tree.items()}
 
 
-def _space_blocks(layer, i):
-    out = _attn_block(layer["sv2p"], f"updateformer.space_virtual2point_blocks.{i}")
-    out.update(_attn_block(layer["svirt"], f"updateformer.space_virtual_blocks.{i}"))
-    out.update(_attn_block(layer["sp2v"], f"updateformer.space_point2virtual_blocks.{i}"))
+def _space_blocks(layer, i, prefix="updateformer."):
+    out = _attn_block(layer["sv2p"], f"{prefix}space_virtual2point_blocks.{i}")
+    out.update(_attn_block(layer["svirt"], f"{prefix}space_virtual_blocks.{i}"))
+    out.update(_attn_block(layer["sp2v"], f"{prefix}space_point2virtual_blocks.{i}"))
     return out
+
+
+def _updateformer(uf, prefix):
+    sd = _dense(uf["input_transform"], f"{prefix}input_transform")
+    sd[f"{prefix}virual_tracks"] = np.asarray(uf["virtual_tracks"])
+    # 1:1 interleave, depth stacked on axis 0 (`migrate_updateformer_layout`
+    # brings older files to this layout)
+    depth = np.asarray(uf["layers"]["time"]["mlp"]["fc1"]["kernel"]).shape[0]
+    for i in range(depth):
+        layer = _unstack(uf["layers"], i)
+        sd.update(_attn_block(layer["time"], f"{prefix}time_blocks.{i}"))
+        sd.update(_space_blocks(layer, i, prefix))
+    for fi, ti in ((0, 0), (1, 2), (2, 4)):
+        sd.update(_dense(uf[f"flow_head_{fi}"], f"{prefix}flow_head.{ti}"))
+    if "support_memory" in uf:
+        sd[f"{prefix}support_memory"] = np.asarray(uf["support_memory"])
+        sd.update(_loftr(uf["gnn"], f"{prefix}gnn."))
+    return sd
 
 
 def params_from_flax(params) -> dict[str, torch.Tensor]:
@@ -224,19 +245,7 @@ def params_from_flax(params) -> dict[str, torch.Tensor]:
             if "downsample" in blk:
                 sd.update(_conv(blk["downsample"], f"{prefix}.downsample.0"))
 
-    uf = p["updateformer"]
-    sd.update(_dense(uf["input_transform"], "updateformer.input_transform"))
-    sd["updateformer.virual_tracks"] = np.asarray(uf["virtual_tracks"])
-    # 1:1 interleave, depth stacked on axis 0 (`migrate_updateformer_layout`
-    # brings older files to this layout)
-    depth = np.asarray(uf["layers"]["time"]["mlp"]["fc1"]["kernel"]).shape[0]
-    for i in range(depth):
-        layer = _unstack(uf["layers"], i)
-        sd.update(_attn_block(layer["time"], f"updateformer.time_blocks.{i}"))
-        sd.update(_space_blocks(layer, i))
-    for fi, ti in ((0, 0), (1, 2), (2, 4)):
-        sd.update(_dense(uf[f"flow_head_{fi}"], f"updateformer.flow_head.{ti}"))
-
+    sd.update(_updateformer(p["updateformer"], "updateformer."))
     sd.update(_norm(p["ffeats_norm"], "ffeats_norm"))
     sd.update(_dense(p["ffeats_updater"], "ffeats_updater.0"))
     if "vis_hidden" in p:
@@ -247,6 +256,23 @@ def params_from_flax(params) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
+def _loftr(p, prefix):
+    """flax LocalFeatureTransformer params (layer_{i}/{q_proj, k_proj, v_proj,
+    merge, mlp_0, mlp_1, norm1, norm2}) -> the reference's names."""
+    sd = {}
+    i = 0
+    while f"layer_{i}" in p:
+        layer, name = p[f"layer_{i}"], f"{prefix}layers.{i}"
+        for lin in ("q_proj", "k_proj", "v_proj", "merge"):
+            sd.update(_dense(layer[lin], f"{name}.{lin}"))
+        sd.update(_dense(layer["mlp_0"], f"{name}.mlp.0"))
+        sd.update(_dense(layer["mlp_1"], f"{name}.mlp.2"))
+        sd.update(_norm(layer["norm1"], f"{name}.norm1"))
+        sd.update(_norm(layer["norm2"], f"{name}.norm2"))
+        i += 1
+    return sd
+
+
 def _point_transformer(p, prefix):
     sd = _dense(p["proj_in"], f"{prefix}proj_in")
     d = 0
@@ -255,6 +281,13 @@ def _point_transformer(p, prefix):
         d += 1
     sd.update(_dense(p["proj_out"], f"{prefix}proj_out"))
     return sd
+
+
+def updateformer_from_flax(params) -> dict[str, torch.Tensor]:
+    """The JAX package's `EfficientUpdateFormer` params (its support memory
+    too) -> a state dict for `mvtracker_torch.models.updateformer.EfficientUpdateFormer`."""
+    sd = _updateformer(params.get("params", params), "")
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
 def point_transformer_from_flax(params) -> dict[str, torch.Tensor]:
@@ -399,15 +432,18 @@ def random_state_dict(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
     """Seeded numpy weights for every tensor of `model.state_dict()`, drawn
     from the distributions flax initializes the JAX MVTracker with:
     convs kaiming-normal (fan out), attention and MLP denses (the update
-    transformer's and the point transformer's) xavier-uniform, the flow head
-    truncated-normal (std 0.001), other denses lecun-normal,
-    virtual tracks standard normal, norms one/zero, biases zero."""
+    transformer's, its LoFTR memory's and the point transformer's)
+    xavier-uniform, the flow head truncated-normal (std 0.001), other denses
+    lecun-normal, virtual tracks standard normal, the support-memory bank
+    0.1, norms one/zero, biases zero."""
     rng = np.random.default_rng(seed)
     out = {}
     for name, t in model.state_dict().items():
         shape = tuple(t.shape)
         if name.endswith("virual_tracks"):
             w = rng.standard_normal(shape)
+        elif name.endswith("support_memory"):
+            w = np.full(shape, 0.1)
         elif name.endswith(".bias"):
             w = np.zeros(shape)
         elif "norm" in name.rsplit(".", 2)[-2]:

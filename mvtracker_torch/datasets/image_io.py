@@ -3,7 +3,7 @@ reader and writer, standing in for `imageio.v3.imread`/`imwrite`, which
 the JAX package's loaders call. The GPU host has neither imageio nor an
 image library behind it.
 
-Read (`read_image`, by the file's magic bytes):
+Read (`read_image` for a file, `decode_image` for bytes, by the magic bytes):
 - PNG, non-interlaced: 8-bit gray, RGB and RGBA, 16-bit gray; all five
   row filters. Returned as imageio returns them: uint8 [H, W] or
   [H, W, C], uint16 [H, W].
@@ -38,7 +38,12 @@ def read_image(path) -> np.ndarray:
     """The image in `path` (PNG, float TIFF, or JPEG through imageio)."""
     path = Path(path)
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_image(f.read(), path)
+
+
+def decode_image(data: bytes, path="<bytes>") -> np.ndarray:
+    """The image encoded in `data` (as `read_image`); `path` names it in
+    errors."""
     if data.startswith(PNG_SIGNATURE):
         return _read_png(data, path)
     if data[:4] in (b"II*\x00", b"MM\x00*"):
@@ -48,7 +53,7 @@ def read_image(path) -> np.ndarray:
             import imageio.v3 as iio
         except ImportError as e:
             raise ImportError(f"{path}: JPEG needs imageio, which is not installed here") from e
-        return np.asarray(iio.imread(path))
+        return np.asarray(iio.imread(bytes(data)))
     raise ValueError(f"{path}: not a PNG, TIFF or JPEG file (starts with {data[:8]!r})")
 
 

@@ -8,11 +8,10 @@ restored with checkpoints, mirroring the reference's dataloader
 statefulness (`cli/train.py:52,546`).
 
 A copy of `PrefetchLoader`, `SyntheticSceneDataset` (with its train-time
-augmentations and on-disk scene cache) and `compress_batch_for_transfer`
-from `mvtracker_tpu/datasets/loader.py` (the port imports nothing of that
-package). The per-process slicing of the permutation waits for the
-data-parallel mesh (ROADMAP A.5), `MonocularProxyDataset` for the 2D
-trackers (A.4).
+augmentations and on-disk scene cache), `MonocularProxyDataset` and
+`compress_batch_for_transfer` from `mvtracker_tpu/datasets/loader.py` (the
+port imports nothing of that package). The per-process slicing of the
+permutation waits for the data-parallel mesh (ROADMAP A.5).
 """
 
 from __future__ import annotations
@@ -220,6 +219,47 @@ class SyntheticSceneDataset:
 
             dp = default_train_augmentations(dp, np.random.default_rng())
         return dp
+
+
+class MonocularProxyDataset:
+    """Any multi-view dataset as monocular 2D-tracking problems, for
+    training `models.cotracker2d.CoTracker2D`.
+
+    Per scene: one view's video (view `view`, or the scene index modulo the
+    view count), that view's pixel track (x, y, 0) in place of the world
+    track, the query at its first visible frame in that view (frame 0 when
+    it is never visible there), zero depths. The Datapoint contract and the
+    trainer and losses apply unchanged, with z supervised to 0."""
+
+    def __init__(self, base, view: Optional[int] = None):
+        self.base = base
+        self.view = view
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, idx: int) -> Datapoint:
+        dp = self.base[idx]
+        vi = self.view if self.view is not None else idx % dp.video.shape[0]
+        traj2d = dp.trajectory[vi]  # [T, N, 3] (x, y, camera z)
+        t, n = traj2d.shape[:2]
+        traj = np.concatenate([traj2d[..., :2], np.zeros((t, n, 1), np.float32)], axis=-1)
+        visibility = dp.visibility[vi : vi + 1]  # [1, T, N]
+        first = np.argmax(visibility[0], axis=0)
+        first[~visibility[0].any(axis=0)] = 0
+        query = np.concatenate([first[:, None].astype(np.float32), traj[first, np.arange(n)]], axis=1)
+        return Datapoint(
+            video=dp.video[vi : vi + 1],
+            videodepth=np.zeros_like(dp.videodepth[vi : vi + 1]),
+            intrs=dp.intrs[vi : vi + 1],
+            extrs=dp.extrs[vi : vi + 1],
+            trajectory=traj[None].copy(),
+            visibility=visibility,
+            trajectory_3d=traj,
+            query_points_3d=query,
+            valid=np.ones((t, n), bool),
+            seq_name=f"{dp.seq_name}_view{vi}_2d",
+        )
 
 
 def compress_batch_for_transfer(batch: dict) -> dict:

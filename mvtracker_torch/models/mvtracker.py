@@ -32,8 +32,14 @@ features stay fp32.
 Options of the JAX module, all off by default (reference behaviour):
 `corr_neighbors_per_level`, `corr_knn_reuse`, `corr_filter_invalid_depth`,
 `global_match_init`, `chain_velocity`, `normalize_scene_in_fwd_pass`,
-`use_point_transformer` and `collect_stats`. `knn_mesh` (a sharded kNN) and
-`support_memory_tokens` (the LoFTR memory) are not ported and raise.
+`use_point_transformer`, `collect_stats` and `support_memory_tokens` (the
+update transformer's LoFTR memory, `models/updateformer.py`). `knn_mesh` (a
+sharded kNN) is not ported and raises.
+
+The variants subclass this module and replace `_build_context`,
+`_feat_init`, `_corr_knn` and `_corr_features` (`models/spatracker.py`,
+`models/cotracker2d.py`); the context is any tree of per-frame tensors,
+which the window loop slices frame-wise (`take_frames`).
 """
 
 from __future__ import annotations
@@ -61,7 +67,6 @@ from mvtracker_torch.utils import geometry as geo
 # value that leaves them off. Setting any other value raises.
 _NOT_PORTED = {
     "knn_mesh": None,
-    "support_memory_tokens": 0,
 }
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
@@ -77,6 +82,18 @@ def window_starts(num_frames: int, window_len: int) -> list[int]:
     """Sliding-window start frames relative to the anchor, hop S/2."""
     hop = window_len // 2
     return list(range(0, max(num_frames - hop, 1), hop))
+
+
+def take_frames(tree, frame_idx: torch.Tensor):
+    """Slice every tensor of a tree (dicts, lists and tuples; None leaves
+    stay None) along its leading frame axis at `frame_idx`."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {key: take_frames(value, frame_idx) for key, value in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(take_frames(value, frame_idx) for value in tree)
+    return tree.index_select(0, frame_idx)
 
 
 def compute_scene_normalization(depths, extrs, intrs, max_depth: float = 24.0, stat_stride: int = 4):
@@ -173,6 +190,7 @@ class MVTracker(nn.Module):
         compute_dtype: str = "float32",
         use_point_transformer: bool = False,
         point_transformer_depth: int = 2,
+        support_memory_tokens: int = 0,
         normalize_scene_in_fwd_pass: bool = False,
         remat: bool = False,
         remat_encoder: bool = True,
@@ -234,6 +252,7 @@ class MVTracker(nn.Module):
         # final coords, and one exact-GELU hidden layer.
         self.vis_geom_features = vis_geom_features
         self.vis_head_hidden = vis_head_hidden
+        self.support_memory_tokens = support_memory_tokens
         self.dtype = _DTYPES[compute_dtype]
         # Recompute activations in the backward instead of keeping them: the
         # update transformer with `remat`, the encoder too with
@@ -257,6 +276,7 @@ class MVTracker(nn.Module):
             add_space_attn=add_space_attn,
             num_virtual_tracks=num_virtual_tracks,
             dtype=self.dtype,
+            support_memory_tokens=support_memory_tokens,
             device=device,
         )
         # Feature update head: LayerNorm (eps 1e-5) -> Linear -> exact GELU.
@@ -592,9 +612,7 @@ class MVTracker(nn.Module):
             is_first = wi == 0
             frame_idx = torch.clamp(torch.arange(s, device=dev) + w_start, max=t - 1)
             active = query_t < w_start + s
-            context_w = [
-                tuple(None if a is None else a.index_select(0, frame_idx) for a in level) for level in context
-            ]
+            context_w = take_frames(context, frame_idx)
             geom_w = None
             if self.vis_geom_features:
                 geom_w = tuple(a.index_select(1, frame_idx) for a in (depths, intrs, extrs))

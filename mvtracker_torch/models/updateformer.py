@@ -16,6 +16,15 @@ Differences from the JAX module, none of them numerical:
 
 Attention is a plain matmul, an fp32 softmax with masked scores set to
 float32's lowest value, and a matmul.
+
+With `support_memory_tokens` > 0 the head first refines the point tokens
+against a learned bank of that many memory tokens (`support_memory`,
+[1, M, hidden], 0.1 at initialisation) through a LoFTR transformer
+(`gnn`, 4 heads, `support_memory_attention` "full" or "linear") over the
+B x (N x T) flattened tokens, in fp32 whatever the compute dtype, with
+inactive tracks masked in (track, time) order. The bank is a parameter; the
+reference's residual updates of it across windows are dropped, as in the
+JAX module.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mvtracker_torch.models.layers import LayerNorm, Linear, layer_norm_noaffine
+from mvtracker_torch.models.loftr import LocalFeatureTransformer
 
 
 class Attention(nn.Module):
@@ -114,6 +124,8 @@ class EfficientUpdateFormer(nn.Module):
         add_space_attn=True,
         num_virtual_tracks=64,
         dtype=None,
+        support_memory_tokens=0,
+        support_memory_attention="full",
         device=None,
     ):
         super().__init__()
@@ -134,6 +146,12 @@ class EfficientUpdateFormer(nn.Module):
         self.space_virtual2point_blocks = nn.ModuleList([CrossAttnBlock(*blk, **kw) for _ in range(n_space)])
         self.space_virtual_blocks = nn.ModuleList([AttnBlock(*blk, **kw) for _ in range(n_space)])
         self.space_point2virtual_blocks = nn.ModuleList([CrossAttnBlock(*blk, **kw) for _ in range(n_space)])
+        self.support_memory_tokens = support_memory_tokens
+        if support_memory_tokens > 0:
+            self.support_memory = nn.Parameter(
+                torch.full((1, support_memory_tokens, hidden_size), 0.1, device=device)
+            )
+            self.gnn = LocalFeatureTransformer(hidden_size, nhead=4, attention=support_memory_attention, device=device)
         # flow_head.{0,2,4} are the Linear layers, in fp32 like the JAX head.
         self.flow_head = nn.Sequential(
             Linear(hidden_size, output_dim, device=device),
@@ -166,4 +184,10 @@ class EfficientUpdateFormer(nn.Module):
                 st = torch.cat([point, virtual], dim=1)
                 tokens = st.reshape(b, t, n_tot, c).permute(0, 2, 1, 3)
                 j += 1
-        return self.flow_head(tokens[:, :n].float())
+        tokens = tokens[:, :n].float()
+        if self.support_memory_tokens > 0:
+            flat = tokens.reshape(b, n * t, c)
+            flat_mask = None if track_mask is None else track_mask.repeat_interleave(t, dim=1)
+            flat, _ = self.gnn(flat, self.support_memory.expand(b, -1, -1), mask0=flat_mask)
+            tokens = flat.reshape(b, n, t, c)
+        return self.flow_head(tokens)

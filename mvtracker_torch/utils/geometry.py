@@ -19,6 +19,11 @@ def to_homogeneous(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
 
 
+def from_homogeneous(x: torch.Tensor) -> torch.Tensor:
+    """Drop the last (homogeneous) coordinate. [..., D+1] -> [..., D]."""
+    return x[..., :-1]
+
+
 def extrinsics_square(extrs: torch.Tensor) -> torch.Tensor:
     """Pad [..., 3, 4] world->camera extrinsics to a square [..., 4, 4]."""
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=extrs.dtype, device=extrs.device)
@@ -44,9 +49,22 @@ def pixel_grid(height: int, width: int, stride: int, device=None) -> torch.Tenso
     return torch.stack([xx, yy], dim=-1)
 
 
+def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2, stride-2 average pool over the last two axes of [..., H, W]."""
+    *lead, h, w = x.shape
+    return x.reshape(*lead, h // 2, 2, w // 2, 2).mean(dim=(-3, -1))
+
+
 def nearest_downsample_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest 2x downsample over the last two axes (even indices)."""
     return x[..., ::2, ::2]
+
+
+def nearest_downsample(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Nearest downsample over the last two axes by an integer factor:
+    output[i] = input[i * factor], as `F.interpolate(scale_factor=1/factor,
+    mode="nearest")`."""
+    return x[..., ::factor, ::factor]
 
 
 def unproject_depth_to_world(
