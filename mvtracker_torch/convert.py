@@ -26,15 +26,22 @@
   optimizer -> the state of `mvtracker_torch.training.step.Optimizer`.
 - `random_state_dict(model, seed)`: seeded numpy weights with the
   distributions flax initializes the JAX model with, for runs that need a
-  model but no checkpoint.
+  model but no checkpoint (the VGGT's by `models/vggt.py::init_rule`).
+- `vggt_params_from_flax(params)`: the JAX package's VGGT params -> a state
+  dict for `mvtracker_torch.models.vggt.VGGT`, whose names are the
+  reference's (facebook/VGGT-1B); `load_vggt_checkpoint(path)`: a
+  downloaded VGGT torch checkpoint as that state dict, the keys the model
+  has no part for (the track head) left out, as JAX's converter does.
 
 Layouts: flax Conv (kh, kw, I, O) -> (O, I, kh, kw); flax Dense (I, O) ->
-(O, I); LayerNorm scale/bias -> weight/bias.
+(O, I); LayerNorm scale/bias -> weight/bias; flax ConvTranspose (kh, kw, I,
+O) -> (I, O, kh, kw) with the taps flipped in both spatial axes.
 """
 
 from __future__ import annotations
 
 import logging
+import re
 import struct
 
 import numpy as np
@@ -435,12 +442,25 @@ def random_state_dict(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
     transformer's, its LoFTR memory's and the point transformer's)
     xavier-uniform, the flow head truncated-normal (std 0.001), other denses
     lecun-normal, virtual tracks standard normal, the support-memory bank
-    0.1, norms one/zero, biases zero."""
+    0.1, norms one/zero, biases zero. For a `VGGT`, the JAX VGGT's (by
+    `models/vggt.py::init_rule`): denses and convs lecun-normal, LayerScale
+    at its init value, camera and register tokens normal with std 1e-6, the
+    DINOv2 positional embedding std 0.02."""
+    from mvtracker_torch.models.vggt import VGGT, init_rule
+
     rng = np.random.default_rng(seed)
     out = {}
     for name, t in model.state_dict().items():
         shape = tuple(t.shape)
-        if name.endswith("virual_tracks"):
+        if isinstance(model, VGGT):
+            kind, value = init_rule(name, shape, model.cfg)
+            if kind == "const":
+                w = np.full(shape, value)
+            elif kind == "normal":
+                w = rng.standard_normal(shape) * value
+            else:
+                w = _truncated_normal(rng, shape, value)
+        elif name.endswith("virual_tracks"):
             w = rng.standard_normal(shape)
         elif name.endswith("support_memory"):
             w = np.full(shape, 0.1)
@@ -460,3 +480,113 @@ def random_state_dict(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
             w = _truncated_normal(rng, shape, 1.0 / np.sqrt(shape[1]))
         out[name] = torch.from_numpy(w.astype(np.float32))
     return out
+
+
+# ---------------------------------------------------------------------------
+# VGGT
+# ---------------------------------------------------------------------------
+
+
+def _deconv(p, name):
+    """flax ConvTranspose -> torch ConvTranspose2d: flax's transposed
+    convolution is a fractionally strided correlation, torch's the gradient
+    of one, so the taps land mirrored."""
+    w = np.asarray(p["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1)
+    return {f"{name}.weight": np.ascontiguousarray(w), f"{name}.bias": np.asarray(p["bias"])}
+
+
+def _vggt_block(p, name):
+    sd = {**_norm(p["norm1"], f"{name}.norm1"), **_norm(p["norm2"], f"{name}.norm2"),
+          f"{name}.ls1.gamma": np.asarray(p["ls1"]), f"{name}.ls2.gamma": np.asarray(p["ls2"])}
+    sd.update(_dense(p["attn"]["qkv"], f"{name}.attn.qkv"))
+    sd.update(_dense(p["attn"]["proj"], f"{name}.attn.proj"))
+    for qk in ("q_norm", "k_norm"):
+        if qk in p["attn"]:
+            sd.update(_norm(p["attn"][qk], f"{name}.attn.{qk}"))
+    sd.update(_dense(p["mlp_fc1"], f"{name}.mlp.fc1"))
+    sd.update(_dense(p["mlp_fc2"], f"{name}.mlp.fc2"))
+    return sd
+
+
+def _dpt_head(p, name):
+    sd = _norm(p["norm"], f"{name}.norm")
+    for li in range(4):
+        sd.update(_conv(p[f"project_{li}"], f"{name}.projects.{li}"))
+        sd.update(_conv(p[f"scratch_{li}"], f"{name}.scratch.layer{li + 1}_rn"))
+    sd.update(_deconv(p["resize_0"], f"{name}.resize_layers.0"))
+    sd.update(_deconv(p["resize_1"], f"{name}.resize_layers.1"))
+    sd.update(_conv(p["resize_3"], f"{name}.resize_layers.3"))
+    for li in range(1, 5):
+        blk, ref = p[f"refine{li}"], f"{name}.scratch.refinenet{li}"
+        for unit in ("res1", "res2"):
+            if f"{unit}_conv1" in blk:
+                for conv in ("conv1", "conv2"):
+                    sd.update(_conv(blk[f"{unit}_{conv}"], f"{ref}.resConfUnit{unit[-1]}.{conv}"))
+        sd.update(_conv(blk["out_conv"], f"{ref}.out_conv"))
+    sd.update(_conv(p["out_conv1"], f"{name}.scratch.output_conv1"))
+    sd.update(_conv(p["out_conv2a"], f"{name}.scratch.output_conv2.0"))
+    sd.update(_conv(p["out_conv2b"], f"{name}.scratch.output_conv2.2"))
+    return sd
+
+
+def _numbered(tree, prefix):
+    """The keys `<prefix><i>` of `tree`, in the order of i."""
+    keys = [k for k in tree if k.startswith(prefix) and k[len(prefix):].isdigit()]
+    return sorted(keys, key=lambda k: int(k[len(prefix):]))
+
+
+def vggt_params_from_flax(params) -> dict[str, torch.Tensor]:
+    """The JAX package's VGGT params (with or without the outer "params"
+    key) -> the port's VGGT state dict (fp32 tensors on the CPU)."""
+    p = params.get("params", params)
+    agg = p["aggregator"]
+    sd = {"aggregator.camera_token": np.asarray(agg["camera_token"])[None],
+          "aggregator.register_token": np.asarray(agg["register_token"])[None]}
+    for i, key in enumerate(_numbered(agg, "frame_")):
+        sd.update(_vggt_block(agg[key], f"aggregator.frame_blocks.{i}"))
+        sd.update(_vggt_block(agg[f"global_{i}"], f"aggregator.global_blocks.{i}"))
+    if "patch_vit" in agg:
+        vit = agg["patch_vit"]
+        sd.update(_conv(vit["proj"], "aggregator.patch_embed.patch_embed.proj"))
+        for leaf in ("cls_token", "pos_embed", "register_tokens"):
+            sd[f"aggregator.patch_embed.{leaf}"] = np.asarray(vit[leaf])
+        sd.update(_norm(vit["norm"], "aggregator.patch_embed.norm"))
+        for i, key in enumerate(_numbered(vit, "block_")):
+            sd.update(_vggt_block(vit[key], f"aggregator.patch_embed.blocks.{i}"))
+    else:
+        sd.update(_conv(agg["patch_embed"], "aggregator.patch_embed.proj"))
+
+    cam = p["camera_head"]
+    sd.update(_norm(cam["token_norm"], "camera_head.token_norm"))
+    sd.update(_norm(cam["trunk_norm"], "camera_head.trunk_norm"))
+    sd["camera_head.empty_pose_tokens"] = np.asarray(cam["empty_pose_tokens"])
+    sd.update(_dense(cam["embed_pose"], "camera_head.embed_pose"))
+    sd.update(_dense(cam["pose_modulation"], "camera_head.poseLN_modulation.1"))
+    sd.update(_dense(cam["pose_branch_fc1"], "camera_head.pose_branch.fc1"))
+    sd.update(_dense(cam["pose_branch_fc2"], "camera_head.pose_branch.fc2"))
+    for i, key in enumerate(_numbered(cam, "trunk_")):
+        sd.update(_vggt_block(cam[key], f"camera_head.trunk.{i}"))
+    sd.update(_dpt_head(p["depth_head"], "depth_head"))
+    sd.update(_dpt_head(p["point_head"], "point_head"))
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+# Keys of a VGGT-1B checkpoint the model has no part for: the track head,
+# and DINOv2's mask token (a pretraining leftover, unused at inference).
+_VGGT_SKIPPED = ("track_head.", "aggregator.patch_embed.mask_token")
+
+
+def load_vggt_checkpoint(path: str) -> dict[str, torch.Tensor]:
+    """A VGGT torch checkpoint (.pt/.pth/.bin, the facebook/VGGT-1B layout)
+    -> the port's VGGT state dict: DINOv2's chunked block names
+    (`blocks.<chunk>.<i>.`) flattened, the skipped keys dropped. Load it
+    with `VGGT(VGGTConfig()).load_state_dict(sd)`."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(ckpt, dict) and "model" in ckpt and not any(k.startswith("aggregator") for k in ckpt):
+        ckpt = ckpt["model"]
+    sd = {}
+    for k, v in ckpt.items():
+        if k.startswith(_VGGT_SKIPPED):
+            continue
+        sd[re.sub(r"(patch_embed\.blocks)\.\d+\.(\d+)\.", r"\1.\2.", k)] = v.float()
+    return sd
