@@ -114,10 +114,30 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     and the rigidity kNN on its twins, tracks with the depth z-test
     through `CachedPredictionPredictor` and `Evaluator`, K1 at k=21,
     M=N=32768 timed against its bound, one full-size render of every slot
-    and its gradients against the plain CPU path; (d) Shape of Motion (10
+    and its gradients against the plain CPU path (computed on a thread beside
+    the later phases, held before the kernels line); (d) Shape of Motion (10
     bases) with depth, mask and track supervision (iterations cut), its
     tracks, its K1 calls held against the exact plain kNN and timed;
-14. a JSON line for the kernels, then the result line.
+14. data parallelism, the sharded kNN and the geometric solvers, with the
+    ranks as processes on this one card (gloo; each loads the kernels phase
+    1 built): (a) `knn_sharded` and `knn_sharded_ring` on 2 and 4 ranks at
+    the flagship's level 0 (12 frames x 16384 points, 256 queries: the
+    gather-merge; 2048: the ring) and on 2 ranks at the large cloud's
+    (281600 points: K4 whole, K1 per half), distances bit-equal to the
+    global search and the exact kNN, indices equal to the exact kNN's;
+    (b) the flagship MVTracker (bf16, seeded) with a 1 x 2 knn_mesh serving
+    a 256- and a 1024-query request, against one process at phase 4's
+    limits; (c) the fp32 train step (TF32 off, remat) on 2 x 1 and 2 x 2
+    meshes (shard_views, shard_tracks) against one process on the same
+    2-scene batch, limits from `scripts/control_torch_parallel.py`, then 3
+    timed bf16 flagship steps; (d) `cli.train` with MVTRACKER_DISTRIBUTED=1
+    in a world of 1 over NCCL on `configs/mvtracker.yaml` for 3 steps and
+    `cli/eval_checkpoint.py --exp_dir` on its checkpoint; (e) ICP
+    recovering a known pose on a rendered frame's cloud and the wrist
+    z-offset search on its two views, card against the CPU, and bundle
+    adjustment card against CPU and over 2 ranks; and once, NCCL with two
+    ranks on the one device, to print what it says;
+15. a JSON line for the kernels, then the result line.
 
 Needs CUDA; exits non-zero without it. Imports nothing of JAX.
 """
@@ -133,6 +153,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -3046,22 +3067,41 @@ def phase_last_models(torch, smi, knn_ops, corr_ops):
 
     with fp32_precision(exact=True):
         out_g, grads_g = render_grads(dev)
+    # The plain CPU path takes minutes on the host's cores (PERF.md, §5):
+    # it runs on a thread beside the script's later card work, and
+    # `check_render` holds it against the card's render once it is done.
+    cpu_ref = {}
+
+    def cpu_render():
         t1 = time.perf_counter()
-        out_c, grads_c = render_grads(torch.device("cpu"))
-        cpu_s = time.perf_counter() - t1
-    for key in ("rgb", "alpha", "depth"):
-        gap = float((getattr(out_g, key).detach().cpu() - getattr(out_c, key).detach()).abs().max())
-        if not gap <= RENDER_ATOL:
-            raise AssertionError(f"render {key}: card vs CPU gap {gap:.3e}")
-    rel = [rel_gap(a.cpu(), b)[0] for a, b in zip(grads_g, grads_c)]
-    log(f"last models (c) render of all {d3cfg.capacity} slots ({int(fitted['active'].sum())} active) at {W}x{H} with "
-        f"its gradients, fp32 (TF32 off), card vs plain CPU ({cpu_s:.1f} s on the CPU): rgb/alpha/depth within "
-        f"{RENDER_ATOL}; gradient relative gaps (means, quats, scales, opacities, colours) "
-        f"{[f'{r:.2e}' for r in rel]} (limit {RENDER_GRAD_RTOL}) [{smi}]")
-    if max(rel) > RENDER_GRAD_RTOL:
-        raise AssertionError(f"render gradients: card vs CPU {rel}")
-    del inputs, out_g, grads_g
-    torch.cuda.empty_cache()
+        try:
+            cpu_ref["out"] = render_grads(torch.device("cpu"))
+        except BaseException as e:  # raised again by check_render
+            cpu_ref["error"] = e
+        cpu_ref["s"] = time.perf_counter() - t1
+
+    cpu_thread = threading.Thread(target=cpu_render, name="render-cpu-reference", daemon=True)
+    cpu_thread.start()
+    n_active = int(fitted["active"].sum())
+
+    def check_render():
+        t1 = time.perf_counter()
+        cpu_thread.join()
+        if "error" in cpu_ref:
+            raise cpu_ref["error"]
+        out_c, grads_c = cpu_ref["out"]
+        for key in ("rgb", "alpha", "depth"):
+            gap = float((getattr(out_g, key).detach().cpu() - getattr(out_c, key).detach()).abs().max())
+            if not gap <= RENDER_ATOL:
+                raise AssertionError(f"render {key}: card vs CPU gap {gap:.3e}")
+        rel = [rel_gap(a.cpu(), b)[0] for a, b in zip(grads_g, grads_c)]
+        log(f"last models (c) render of all {d3cfg.capacity} slots ({n_active} active) at {W}x{H} with "
+            f"its gradients, fp32 (TF32 off), card vs plain CPU ({cpu_ref['s']:.1f} s on the CPU beside the later "
+            f"phases, {time.perf_counter() - t1:.1f} s waited for): rgb/alpha/depth within "
+            f"{RENDER_ATOL}; gradient relative gaps (means, quats, scales, opacities, colours) "
+            f"{[f'{r:.2e}' for r in rel]} (limit {RENDER_GRAD_RTOL}) [{smi}]")
+        if max(rel) > RENDER_GRAD_RTOL:
+            raise AssertionError(f"render gradients: card vs CPU {rel}")
 
     # (d) Shape of Motion at the JAX widths on the same frames, with depth,
     # mask and track supervision.
@@ -3115,7 +3155,737 @@ def phase_last_models(torch, smi, knn_ops, corr_ops):
                GENERIC_PLAIN_LIMITS, f"last models (b) generic scene, fp32 (TF32 off, exact kNN), card vs plain CPU "
                                      f"({cpu_s:.1f} s on the CPU) [{smi}]")
     tmp.cleanup()
-    return paths, free
+    return paths, free, check_render
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: data parallelism, the sharded kNN, ICP and bundle adjustment
+# ---------------------------------------------------------------------------
+
+# The ranks are processes on this one card joined by gloo (NCCL admits one
+# rank per device): the port's gloo collectives move CUDA tensors through
+# host memory. Two processes on one card are no data-parallel speed-up: the
+# times below say what the collectives and the sharing cost, not what a
+# second card would gain.
+PAR_RING_QUERIES = 2048  # (a): M * k = 32768 > 16384 / D points a shard: the ring
+PAR_MESH_QUERIES = (256, 1024)  # (b): level 0 by the gather-merge, then by the ring
+PAR_STEP_SCENE = (4, 18, 128, 128, 64)  # (c) fp32 parity batch: views, frames, H, W, tracks a scene
+PAR_STEPS, PAR_BF16_STEPS, PAR_TOTAL_STEPS = 2, 3, 100
+PAR_CHILD_TIMEOUT = 300
+PAR_DEVICE = "cuda"  # phase 14's device (a rehearsal on the CPU sets "cpu")
+# (c) the sharded fp32 step against one process (TF32 off, remat), 2 steps.
+# Limits from `scripts/control_torch_parallel.py`, the same comparison at
+# small width on gloo CPU processes; its readings, the worse of 2 x 1 and
+# 2 x 2 with shard_views and shard_tracks, in the comments. The control's
+# 2 x 1 reads 0.0 in all of them (the same sums in the same order on the
+# CPU); on the card neither 2 x 1 nor one process against itself does:
+# cuDNN's weight gradients of the encoder's convs differ from run to run
+# (PERF.md, §6).
+PAR_STEP_LIMITS = {
+    "loss": 1e-5,  # relative, the worse step; control 8.0e-8
+    # Adam's moments, each leaf's max |gap| / max |value|, the worst leaf.
+    # After step 1, the first moment (0.1 x the clipped gradient) outside
+    # the encoder's convs; control 6.8e-6:
+    "mu": 1e-3,
+    # The encoder's conv weights, phase 6's class and limit; control 8.1e-6:
+    "mu_encoder": 2e-1,
+    # After step 2, both moments over every leaf (but the dead conv biases):
+    # AdamW moves every parameter whose first gradient is rounding noise by
+    # a whole step of the learning rate, so the second gradient of every
+    # leaf carries the encoder class's noise; phase 6's class limit. Control
+    # 4.4e-2 (mu) and 4.1e-2 (nu), both at an encoder conv. A wrong second
+    # gradient shows above it: a factor 2 reads about 0.5 (mu) and 1.5 (nu).
+    "mu_last": 2e-1,
+    "nu_last": 2e-1,
+    # max |gap| over every parameter: two AdamW steps move a parameter by at
+    # most lr_0 + lr_1 = 8.6e-5, so where a gradient is rounding noise two
+    # runs part by up to 1.7e-4; control 1.03e-4. A check against blow-up;
+    # the moments above hold the gradients.
+    "params": 2e-4,
+}
+# (e) ICP card vs CPU after ICP_ITERS iterations; the recovery bounds of the
+# JAX package's ICP test; bundle adjustment as `tests/test_torch_bundle_adjust.py`.
+ICP_ITERS, ICP_STRIDE = 20, 4
+ICP_POSE_ATOL, ICP_FIT_ATOL, ICP_Z_ATOL = 1e-4, 1e-3, 1e-4
+BA_ATOL, BA_PIXEL_ATOL = 1e-4, 1e-3
+
+
+def check_built() -> None:
+    """A child process must find every kernel that phase 1 built."""
+    from mvtracker_torch.ops import _cuda
+
+    missing = [name for name in _cuda.SOURCES if not _cuda._library_path(name).exists()]
+    if missing:
+        raise RuntimeError(f"kernels {missing} are not built: a child would build them itself")
+
+
+def counters():
+    from mvtracker_torch.ops import corr as corr_ops
+    from mvtracker_torch.ops import knn as knn_ops
+
+    return {"knn": knn_ops.knn_cuda, "knn_tiled": knn_ops.knn_tiled_cuda, "knn_exact": knn_ops.knn_exact_cuda,
+            "corr": corr_ops.corr_select_cuda, "corr_bwd": corr_ops.corr_select_backward_cuda}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items() if fn.launches}
+
+
+def level0_cloud(torch, scene, frames, dev):
+    """The level-0 xyz cloud [frames, P, 3] of a scene's first frames, as the
+    tracker builds it (stride 4, every view)."""
+    from mvtracker_torch.utils import geometry as geo
+
+    _, depths, _, intrs, extrs = (torch.as_tensor(a, device=dev) for a in scene)
+    f = slice(0, frames)
+    xyz, _ = geo.init_pointcloud_from_rgbd(
+        depths[None, :, f, ::4, ::4, None], depths[None, :, f, ::4, ::4], intrs[None, :, f], extrs[None, :, f],
+        stride=4, level=0)
+    return xyz.reshape(frames, -1, 3).contiguous()
+
+
+def par_knn(torch, rank, world, spec):
+    """(a) on this rank: each case's cloud split into `world` equal shards,
+    searched by its schedule; the results and this rank's K1 and K4 launches."""
+    from mvtracker_torch.ops import knn as knn_ops
+    from mvtracker_torch.parallel.mesh import make_mesh
+
+    group = make_mesh(1, world, backend="gloo").group("model")
+    out = {}
+    for name, (ref, query, k, schedule) in spec.items():
+        ref, query = torch.as_tensor(ref, device=PAR_DEVICE), torch.as_tensor(query, device=PAR_DEVICE)
+        n_local = ref.shape[1] // world
+        shard = ref[:, rank * n_local : (rank + 1) * n_local].contiguous()
+        fn = knn_ops.knn_sharded_ring if schedule == "ring" else knn_ops.knn_sharded
+        fn(shard, query, k, group)  # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        d, i = fn(shard, query, k, group)
+        torch.cuda.synchronize()
+        out[name] = {"d": d.cpu().numpy(), "i": i.cpu().numpy(), "ms": (time.perf_counter() - t0) * 1e3,
+                     "launches": read_counts()}
+    return out
+
+
+def mesh_requests(n_queries):
+    from mvtracker_torch.scene import make_scene
+
+    return [make_scene(np.random.default_rng(0), V, T, H, W, n) for n in n_queries]
+
+
+def flagship_bf16(torch, dev, **kw):
+    from mvtracker_torch.convert import random_state_dict
+    from mvtracker_torch.models.mvtracker import MVTracker
+
+    model = MVTracker(compute_dtype="bfloat16", device=dev, **kw).eval()
+    model.load_state_dict(random_state_dict(model, seed=0))
+    return model
+
+
+def par_knn_mesh(torch, rank, world, spec):
+    """(b) on this rank: the flagship bf16 MVTracker with a 1 x world knn_mesh
+    serves the requests; tracks, launches and ms per request."""
+    from mvtracker_torch.ops import knn as knn_ops
+    from mvtracker_torch.parallel.mesh import make_mesh
+
+    model = flagship_bf16(torch, PAR_DEVICE, knn_mesh=make_mesh(1, world, backend="gloo"))
+    schedules = {"gather": 0, "ring": 0}
+    for name, attr in (("gather", "knn_sharded"), ("ring", "knn_sharded_ring")):
+        def counted(*a, _fn=getattr(knn_ops, attr), _name=name, **kw):
+            schedules[_name] += 1
+            return _fn(*a, **kw)
+        setattr(knn_ops, attr, counted)
+    out = []
+    for scene in mesh_requests(spec["queries"]):
+        scene = to_device(scene, torch.device(PAR_DEVICE))
+        torch.cuda.synchronize()
+        reset_counts()
+        schedules.update(gather=0, ring=0)
+        t0 = time.perf_counter()
+        res = model(*scene, iters=ITERS)
+        torch.cuda.synchronize()
+        out.append({"traj": res["traj"].float().cpu().numpy(), "vis": res["vis"].float().cpu().numpy(),
+                    "ms": (time.perf_counter() - t0) * 1e3, "launches": read_counts(), "schedules": dict(schedules)})
+    return out
+
+
+def par_step_batch(views, frames, height, width, tracks, scenes=2, seed=3):
+    """A batch of `scenes` seeded scenes with ground truth, as numpy arrays."""
+    from mvtracker_torch.scene import make_scene
+
+    rng = np.random.default_rng(seed)
+    parts = [make_scene(rng, views, frames, height, width, tracks) for _ in range(scenes)]
+    keys = ("rgbs", "depths", "query_points", "intrs", "extrs")
+    batch = {k: np.stack([p[i] for p in parts]) for i, k in enumerate(keys)}
+    batch["traj_gt"] = (batch["query_points"][:, None, :, 1:]
+                        + rng.normal(size=(scenes, frames, tracks, 3)) * 0.1).astype(np.float32)
+    batch["vis_gt"] = (rng.random((scenes, frames, tracks)) > 0.3).astype(np.float32)
+    batch["valid"] = np.ones((scenes, frames, tracks), np.float32)
+    return batch
+
+
+def par_step_model(torch, device, width, dtype="float32"):
+    """The model of part (c): remat, seeded weights with the flow-head gain."""
+    from mvtracker_torch.convert import random_state_dict
+    from mvtracker_torch.models.mvtracker import MVTracker
+
+    model = MVTracker(**width, compute_dtype=dtype, remat=True, remat_encoder=False, device=device)
+    sd = random_state_dict(model, seed=1)
+    for name in sd:
+        if name.startswith("updateformer.flow_head.") and name.endswith("weight"):
+            sd[name] = sd[name] * FLOW_HEAD_GAIN
+    model.load_state_dict(sd)
+    return model
+
+
+def par_run_steps(torch, model, batch, steps, mesh=None, shard_views=False, shard_tracks=False, exact=True):
+    """`steps` train steps on `batch` (this rank's scenes when a mesh is
+    given), TF32 off with `exact`; the metrics of every step, the host ms of
+    each, the parameters after them, Adam's first moment after the first
+    step (0.1 x its clipped gradient) and both moments after the last (they
+    mix in gradients taken where the parameters already differ, AdamW
+    having turned rounding noise into whole steps of the learning rate)."""
+    from mvtracker_torch.device import fp32_precision
+    from mvtracker_torch.training import step as step_lib
+
+    optimizer = step_lib.make_optimizer(total_steps=PAR_TOTAL_STEPS)
+    state = step_lib.init_state(model, optimizer)
+    step = step_lib.make_train_step(model, optimizer, iters=ITERS, mesh=mesh, shard_views=shard_views,
+                                    shard_tracks=shard_tracks)
+    metrics, times, mu = [], [], None
+    with fp32_precision(exact=exact):
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})  # synchronises
+            times.append((time.perf_counter() - t0) * 1e3)
+            if mu is None:  # a copy: on the CPU `.cpu()` is the tensor the next step updates in place
+                mu = {k: v.cpu().numpy().copy() for k, v in state.opt_state["mu"].items()}
+    return {"metrics": metrics, "ms": times, "mu": mu,
+            "mu_last": {k: v.cpu().numpy() for k, v in state.opt_state["mu"].items()},
+            "nu_last": {k: v.cpu().numpy() for k, v in state.opt_state["nu"].items()},
+            "params": {k: p.detach().cpu().numpy() for k, p in model.named_parameters()}}
+
+
+def par_step(torch, rank, world, spec):
+    """(c) on this rank: the fp32 parity steps on its scenes, then timed bf16
+    steps at the flagship shape. Rank 0 returns the parameters and moments;
+    every rank a digest of its parameters."""
+    from mvtracker_torch.parallel import mesh as mesh_lib
+
+    device = spec["device"]
+    mesh = mesh_lib.make_mesh(world // spec["n_model"], spec["n_model"], backend="gloo")
+    flags = dict(shard_views=spec["shard_views"], shard_tracks=spec["shard_tracks"])
+    model = par_step_model(torch, device, spec["width"])
+    local = mesh_lib.shard_batch_pytree(par_step_batch(*spec["scene"]), mesh)
+    reset_counts()
+    got = par_run_steps(torch, model, local, PAR_STEPS, mesh=mesh, **flags)
+    got["parity_launches"] = read_counts()
+    got["digest"] = float(sum(float(np.abs(p).astype(np.float64).sum()) for p in got["params"].values()))
+    if rank != 0:
+        for key in ("params", "mu", "mu_last", "nu_last"):
+            got.pop(key)
+    del model
+    if not spec.get("bf16_steps"):
+        return got
+    # Timed bf16 steps of the flagship on a 2-scene batch of the flagship shape.
+    torch.cuda.empty_cache()
+    model = par_step_model(torch, device, spec["width"], dtype="bfloat16")
+    local = {k: torch.as_tensor(v, device=device)
+             for k, v in mesh_lib.shard_batch_pytree(par_step_batch(V, T, H, W, N_QUERIES, seed=0), mesh).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    timed = par_run_steps(torch, model, local, spec["bf16_steps"], mesh=mesh, exact=False, **flags)
+    got["bf16"] = {"ms": timed["ms"], "loss": [m["loss"] for m in timed["metrics"]], "launches": read_counts(),
+                   "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+    return got
+
+
+def par_probe(torch, rank, world, spec) -> list:
+    """(c) on this rank, alone (no mesh): the ops of one fp32 train step of
+    the parity batch that PyTorch warns have no deterministic implementation
+    (`use_deterministic_algorithms(True, warn_only=True)`, a process-wide
+    switch, so in a child: the main process's CPU render runs meanwhile)."""
+    import warnings
+
+    from mvtracker_torch.device import fp32_precision
+    from mvtracker_torch.training import step as step_lib
+
+    model = par_step_model(torch, PAR_DEVICE, {})
+    batch = {k: torch.as_tensor(v, device=PAR_DEVICE) for k, v in par_step_batch(*spec["scene"]).items()}
+    optimizer = step_lib.make_optimizer(total_steps=PAR_TOTAL_STEPS)
+    step = step_lib.make_train_step(model, optimizer, iters=ITERS)
+    with warnings.catch_warnings(record=True) as caught, fp32_precision(exact=True):
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            float(step(step_lib.init_state(model, optimizer), batch)[1]["loss"])
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(" does not have")[0].split(".")[0][:120] for w in caught
+                   if "determinis" in str(w.message)})
+
+
+def step_gaps(got, want) -> dict:
+    """The sharded step against one process: the loss's worst relative gap
+    over the steps; Adam's first moment after the first step per leaf class
+    and both moments after the last over every leaf, each leaf's max |gap|
+    over its largest |value|, the worst leaf; the largest parameter gap."""
+    gaps = {"loss": max(abs(g["loss"] - w["loss"]) / abs(w["loss"]) for g, w in zip(got["metrics"],
+                                                                                   want["metrics"]))}
+    for moment in ("mu", "mu_last", "nu_last"):
+        worst = {"plain": 0.0, "encoder": 0.0}
+        for name, w in want[moment].items():
+            kind = leaf_kind(name)
+            if kind != "dead":
+                gap = float(np.abs(got[moment][name] - w).max() / max(np.abs(w).max(), 1e-30))
+                worst[kind] = max(worst[kind], gap)
+        if moment == "mu":
+            gaps["mu"], gaps["mu_encoder"] = worst["plain"], worst["encoder"]
+        else:
+            gaps[moment] = max(worst.values())
+    gaps["params"] = max(float(np.abs(got["params"][k] - w).max()) for k, w in want["params"].items())
+    return gaps
+
+
+def par_bundle(torch, rank, world, spec):
+    """(e) on this rank: `refine_cameras_sharded` over its equal slice of the
+    points, on the card."""
+    from mvtracker_torch.ops import bundle_adjust as ba
+
+    import torch.distributed as dist
+
+    intrs, extrs, points, obs, weights = (torch.as_tensor(a, device=PAR_DEVICE) for a in spec["problem"])
+    per = points.shape[0] // world
+    sl = slice(rank * per, (rank + 1) * per)
+    e, p = ba.refine_cameras_sharded(intrs, extrs, points[sl], obs[:, sl], weights[:, sl], dist.group.WORLD,
+                                     iterations=spec["iterations"])
+    return {"extrs": e.cpu().numpy(), "points": p.cpu().numpy()}
+
+
+def par_child(rank, world, plan, device):
+    """A phase-14 process: the parts of `plan`, in order, on `device` (the
+    card; the CPU for `scripts/control_torch_parallel.py`)."""
+    import torch
+
+    global PAR_DEVICE
+    PAR_DEVICE = device
+    if PAR_DEVICE == "cuda":
+        torch.cuda.set_device(0)
+        check_built()
+    fns = {"knn": par_knn, "knn_mesh": par_knn_mesh, "step": par_step, "step4": par_step, "bundle": par_bundle,
+           "probe": par_probe}
+    out = {"entered": time.time()}
+    for part, spec in plan:
+        t0 = time.perf_counter()
+        out[part] = fns[part](torch, rank, world, spec)
+        out[part + "_s"] = time.perf_counter() - t0
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20 if PAR_DEVICE == "cuda" else 0.0
+    out["left"] = time.time()
+    return out
+
+
+def nccl_on_one_card(rank, world):
+    """Two NCCL ranks on one device: what NCCL says."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    group = dist.new_group(backend="nccl", timeout=datetime.timedelta(seconds=30))
+    x = torch.ones(4, device="cuda")
+    dist.all_reduce(x, group=group)
+    torch.cuda.synchronize()
+    return float(x[0])
+
+
+def ba_problem(rng, v=4, p=256):
+    """Cameras on a circle looking at the origin, points near it, their
+    exact pixels and unit weights where in front; the cameras but view 0
+    perturbed by about 1 degree and 2 cm. 256 points, the size of the JAX
+    package's sharded test: joint refinement leaves a similarity gauge that
+    only the 1e-4 damping holds, and at 4096 points its first fp32 step is
+    decided by rounding (max twist 0.16 in JAX, 0.63 or 8.7 in the port on
+    1 or 4 CPU threads, the last diverging to NaN)."""
+    intrs = np.zeros((v, 3, 3), np.float32)
+    intrs[:, 0, 0] = intrs[:, 1, 1] = 300.0
+    intrs[:, :2, 2] = (160.0, 120.0)
+    intrs[:, 2, 2] = 1.0
+    extrs = np.zeros((v, 3, 4), np.float32)
+    for vi in range(v):
+        c, s = np.cos(2 * np.pi * vi / v), np.sin(2 * np.pi * vi / v)
+        extrs[vi, :, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+        extrs[vi, :, 3] = [0.05 * vi, -0.02 * vi, 3.0]
+    points = (rng.normal(size=(p, 3)) * 0.5).astype(np.float32)
+    cam = np.einsum("vij,pj->vpi", extrs[:, :, :3], points) + extrs[:, None, :, 3]
+    pix = np.einsum("vij,vpj->vpi", intrs, cam)
+    obs = (pix[..., :2] / pix[..., 2:]).astype(np.float32)
+    weights = (cam[..., 2] > 0.1).astype(np.float32)
+    perturbed = extrs.copy()
+    for vi in range(1, v):
+        w = np.deg2rad(1.0) * rng.normal(size=3)
+        theta = np.linalg.norm(w)
+        kx = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / theta
+        dr = np.eye(3) + np.sin(theta) * kx + (1 - np.cos(theta)) * kx @ kx
+        perturbed[vi, :, :3] = dr @ perturbed[vi, :, :3]
+        perturbed[vi, :, 3] += 0.02 * rng.normal(size=3)
+    return intrs, perturbed.astype(np.float32), points, obs, weights
+
+
+def pixels(torch, intrs, extrs, points):
+    from mvtracker_torch.ops import bundle_adjust as ba
+
+    v, p = extrs.shape[0], points.shape[0]
+    r, _, _ = ba._project_residuals(*(torch.as_tensor(np.asarray(a, np.float32)) for a in (
+        intrs, extrs, points, np.zeros((v, p, 2)), np.ones((v, p)))))
+    return r.numpy()
+
+
+def rotation(axis, deg):
+    axis = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    a = np.deg2rad(deg)
+    kx = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(a) * kx + (1 - np.cos(a)) * kx @ kx
+
+
+def phase_parallel(torch, smi, knn_ops, corr_ops):
+    """Phase 14: (a) the two kNN schedules at full size on 2 and 4 ranks, (b)
+    the flagship MVTracker with a knn_mesh over 2 ranks, (c) the sharded
+    train step, (d) `cli.train` with MVTRACKER_DISTRIBUTED=1 (a world of 1,
+    NCCL) and `eval_checkpoint --exp_dir`, (e) ICP, the z-offset search and
+    bundle adjustment; the ranks are processes on this card. Returns
+    {path: launch totals} (children's counts summed over their ranks)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from mvtracker_torch.cli import eval_checkpoint
+    from mvtracker_torch.cli import train as cli_train
+    from mvtracker_torch.datasets.synthetic import render_scene
+    from mvtracker_torch.ops import bundle_adjust as ba
+    from mvtracker_torch.ops import icp
+    from mvtracker_torch.parallel.launch import run_local
+    from mvtracker_torch.scene import make_scene
+    from mvtracker_torch.utils import geometry as geo
+
+    dev = torch.device(PAR_DEVICE)
+    paths = {}
+    tmp = tempfile.TemporaryDirectory()
+    groups = "backend gloo, collectives through host memory"
+
+    # References in this process, on the card.
+    t0 = time.perf_counter()
+    flag = make_scene(np.random.default_rng(0), V, T, H, W, PAR_RING_QUERIES)
+    cloud = level0_cloud(torch, flag, WINDOW, dev)  # [12, 16384, 3]
+    queries = torch.as_tensor(flag[2][:, 1:], device=dev)[None].expand(WINDOW, -1, -1).contiguous()
+    large = make_scene(np.random.default_rng(10), LARGE_V, WINDOW, LARGE_H, LARGE_W, N_QUERIES)
+    large_cloud = level0_cloud(torch, large, WINDOW, dev)  # [12, 281600, 3]
+    large_q = torch.as_tensor(large[2][:, 1:], device=dev)[None].expand(WINDOW, -1, -1).contiguous()
+    del large
+    k = 16
+    knn_cases = {
+        "flagship_gather": (cloud, queries[:, :N_QUERIES].contiguous(), k, "gather"),
+        "flagship_ring": (cloud, queries, k, "ring"),
+        "large_gather": (large_cloud, large_q, k, "gather"),
+    }
+    want = {}
+    for name, (ref, q, kk, _) in knn_cases.items():
+        want[name] = {"global": knn_ops.knn(ref, q, kk), "exact": knn_ops.knn_exact_cuda(ref, q, kk)}
+    mesh_model = flagship_bf16(torch, dev)
+    mesh_want = []
+    for scene in mesh_requests(PAR_MESH_QUERIES):
+        res = mesh_model(*to_device(scene, dev), iters=ITERS)
+        mesh_want.append({key: res[key].float().cpu().numpy() for key in ("traj", "vis")})
+    del mesh_model
+    step_scene = PAR_STEP_SCENE
+    step_batch = {k: torch.as_tensor(v, device=dev) for k, v in par_step_batch(*step_scene).items()}
+    step_want = par_run_steps(torch, par_step_model(torch, PAR_DEVICE, {}), step_batch, PAR_STEPS)
+    # The same steps again in this process: the noise floor of the
+    # comparisons of (c).
+    step_again = step_gaps(par_run_steps(torch, par_step_model(torch, PAR_DEVICE, {}), step_batch, PAR_STEPS),
+                           step_want)
+    del step_batch
+    problem = ba_problem(np.random.default_rng(0))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"parallel: references in one process {time.perf_counter() - t0:.1f} s [{smi}]")
+
+    def numpy_cases(names):
+        return {n: (knn_cases[n][0].cpu().numpy(), knn_cases[n][1].cpu().numpy(), knn_cases[n][2], knn_cases[n][3])
+                for n in names}
+
+    step_spec = dict(device=PAR_DEVICE, width={}, scene=step_scene, bf16_steps=PAR_BF16_STEPS)
+    plans = {
+        2: [("knn", numpy_cases(["flagship_gather", "flagship_ring", "large_gather"])),
+            ("knn_mesh", {"queries": PAR_MESH_QUERIES}),
+            ("step", dict(step_spec, n_model=1, shard_views=False, shard_tracks=False)),
+            ("bundle", {"problem": problem, "iterations": 10}),
+            ("probe", {"scene": step_scene})],
+        4: [("knn", numpy_cases(["flagship_gather", "flagship_ring"])),
+            ("step4", dict(step_spec, n_model=2, shard_views=True, shard_tracks=True))],
+    }
+    results = {}
+    for world, plan in plans.items():
+        t0, start = time.perf_counter(), time.time()
+        results[world] = run_local(par_child, world, tmp.name, plan, PAR_DEVICE, timeout=PAR_CHILD_TIMEOUT,
+                                   threads=max(1, (os.cpu_count() or 1) // world))
+        done = time.time()
+        log(f"parallel: {world} ranks on one card ({groups}) in {time.perf_counter() - t0:.1f} s, of it per rank "
+            f"{[{p: round(r[p + '_s'], 1) for p, _ in plan} for r in results[world]]} s, from the start to each "
+            f"rank's first part {[round(r['entered'] - start, 1) for r in results[world]]} s and from its return to "
+            f"the last exit {[round(done - r['left'], 1) for r in results[world]]} s; peak memory per rank "
+            f"{[round(r['peak_mib'], 1) for r in results[world]]} MiB [{smi}]")
+
+    # (a) The schedules against the global search and the exact kNN.
+    k1 = {}
+    for world, ranks in results.items():
+        for name, (ref, q, kk, schedule) in knn_cases.items():
+            if name not in ranks[0]["knn"]:
+                continue
+            gd, gi = (a.cpu().numpy() for a in want[name]["global"])
+            ed, ei = (a.cpu().numpy() for a in want[name]["exact"])
+            ties = int((np.diff(ed, axis=-1) == 0).sum())
+            for rank, r in enumerate(ranks):
+                got = r["knn"][name]
+                if not (np.array_equal(got["d"], gd) and np.array_equal(got["d"], ed)):
+                    raise AssertionError(f"parallel (a) {name} on {world} ranks, rank {rank}: distances differ "
+                                         f"from the global search ({float(np.abs(got['d'] - gd).max()):.3e})")
+                if not np.array_equal(got["i"], ei):
+                    raise AssertionError(f"parallel (a) {name} on {world} ranks, rank {rank}: "
+                                         f"{int((got['i'] != ei).sum())} indices differ from the exact kNN's")
+                if not np.array_equal(got["d"], ranks[0]["knn"][name]["d"]):
+                    raise AssertionError(f"parallel (a) {name}: the ranks disagree")
+                k1[(world, name, rank)] = got["launches"]
+            off = int((gi != ei).sum())
+            per_rank = [r["knn"][name]["launches"] for r in ranks]
+            global_kernel = "K4" if ref.shape[1] > knn_ops.FUSED_MAX_POINTS else "K1"
+            log(f"parallel (a) {name}: cloud [{ref.shape[0]}, {ref.shape[1]}, 3] over {world} ranks "
+                f"({ref.shape[1] // world} points a shard), {q.shape[1]} queries, k={kk}, {schedule}: distances "
+                f"bit-equal to the global {global_kernel} search and the exact kNN, indices equal to the exact kNN's; "
+                f"{ties} tied neighbour pairs, {off} indices of the global {global_kernel} search ordered otherwise; "
+                f"launches per rank {per_rank}; ms per rank {[round(r['knn'][name]['ms'], 2) for r in ranks]} "
+                f"[{smi}]")
+            if any(set(c) != {"knn"} or c["knn"] != (1 if schedule == "gather" else world) for c in per_rank):
+                raise AssertionError(f"parallel (a) {name}: launches per rank {per_rank}")
+    paths["parallel_knn"] = {"knn": sum(c["knn"] for c in k1.values())}
+
+    # (b) The knn_mesh tracker against the same requests in one process.
+    counts = {"knn": 0, "corr": 0}
+    for qi, n in enumerate(PAR_MESH_QUERIES):
+        rows = []
+        for rank, r in enumerate(results[2]):
+            got = r["knn_mesh"][qi]
+            for key, (tmax, tmed) in (("traj", (E2E_TRAJ_MAX, E2E_TRAJ_MEDIAN)),
+                                      ("vis", (E2E_VIS_MAX, E2E_VIS_MEDIAN))):
+                gap = np.abs(got[key] - mesh_want[qi][key])
+                rows.append(f"rank {rank} {key} max {gap.max():.3e} median {np.median(gap):.3e}")
+                if not (gap.max() <= tmax and np.median(gap) <= tmed):
+                    raise AssertionError(f"parallel (b) {n} queries, rank {rank}: {key} gap {gap.max():.3e} / "
+                                         f"{np.median(gap):.3e} beyond phase 4's limits {tmax} / {tmed}")
+            for key in counts:
+                counts[key] += got["launches"].get(key, 0)
+        per_rank = [r["knn_mesh"][qi]["launches"] for r in results[2]]
+        log(f"parallel (b) flagship bf16 knn_mesh 1 x 2, request of {n} queries: schedules per rank "
+            f"{[r['knn_mesh'][qi]['schedules'] for r in results[2]]}, launches per rank {per_rank}, ms per rank "
+            f"{[round(r['knn_mesh'][qi]['ms'], 2) for r in results[2]]}; against one process (limits phase 4's, "
+            f"traj {E2E_TRAJ_MAX} / {E2E_TRAJ_MEDIAN}, vis {E2E_VIS_MAX} / {E2E_VIS_MEDIAN}): {'; '.join(rows)} "
+            f"[{smi}]")
+        schedule = "gather" if n * 16 <= LEVEL_POINTS[0] // 2 else "ring"
+        if any(not r["knn_mesh"][qi]["schedules"][schedule] for r in results[2]):
+            raise AssertionError(f"parallel (b) {n} queries: level 0 did not take the {schedule} schedule")
+    paths["parallel_knn_mesh"] = counts
+
+    # (c) The sharded train step against one process.
+    counts = {"knn": 0, "corr": 0, "corr_bwd": 0}
+    for world, part in ((2, "step"), (4, "step4")):
+        ranks = [r[part] for r in results[world]]
+        if len({r["digest"] for r in ranks}) != 1:
+            raise AssertionError(f"parallel (c) {part}: the ranks' parameters differ {[r['digest'] for r in ranks]}")
+        gaps = step_gaps(ranks[0], step_want)
+        label = "2 x 1" if world == 2 else "2 x 2 shard_views shard_tracks"
+        log(f"parallel (c) flagship fp32 train step, TF32 off, remat, {label}, {PAR_STEPS} steps of a 2-scene batch "
+            f"({step_scene[0]} views x {step_scene[1]} frames x {step_scene[2]}x{step_scene[3]}, {step_scene[4]} "
+            f"tracks) against one process: loss {[round(m['loss'], 6) for m in ranks[0]['metrics']]} vs "
+            f"{[round(m['loss'], 6) for m in step_want['metrics']]}; gaps {gaps}, limits {PAR_STEP_LIMITS}; "
+            f"launches per rank {[r['parity_launches'] for r in ranks]} [{smi}]")
+        if world == 2:
+            log(f"parallel (c) one process against itself, the same fp32 steps: gaps {step_again}; ops without a "
+                f"deterministic implementation in one such step (each rank of the 2-rank round, in its own "
+                f"process): {[r['probe'] for r in results[2]]} [{smi}]")
+        bad = {key: v for key, v in gaps.items() if not v <= PAR_STEP_LIMITS[key]}
+        if bad:
+            raise AssertionError(f"parallel (c) {label}: gaps {bad} beyond {PAR_STEP_LIMITS}")
+        bf16 = [r["bf16"] for r in ranks]
+        log(f"parallel (c) flagship bf16 (remat) {label}, {PAR_BF16_STEPS} steps of 2 scenes of {V} views x {T} "
+            f"frames x {H}x{W}, {N_QUERIES} tracks ({world} processes sharing one card, no data-parallel speed-up): "
+            f"ms per step per rank {[[round(x, 1) for x in b['ms']] for b in bf16]}, peak memory per rank "
+            f"{[round(b['peak_mib'], 1) for b in bf16]} MiB, losses {bf16[0]['loss']}, launches per rank "
+            f"{[b['launches'] for b in bf16]} [{smi}]")
+        want_steps = {"knn": K1_PER_FWD * PAR_BF16_STEPS, "corr": K2_PER_FWD * PAR_BF16_STEPS,
+                      "corr_bwd": K3_PER_STEP * PAR_BF16_STEPS}
+        if any(b["launches"] != want_steps for b in bf16) or not all(np.isfinite(b["loss"]).all() for b in bf16):
+            raise AssertionError(f"parallel (c) {label} bf16: launches {[b['launches'] for b in bf16]}, want "
+                                 f"{want_steps}; losses {[b['loss'] for b in bf16]}")
+        for b in bf16:
+            for key in counts:
+                counts[key] += b["launches"][key]
+    paths["parallel_train"] = counts
+
+    # (d) cli.train with MVTRACKER_DISTRIBUTED=1: a world of 1 over NCCL, the
+    # environment as a launcher sets it; then eval_checkpoint --exp_dir.
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    exp = str(Path(tmp.name) / "distributed")
+    env = {"MVTRACKER_DISTRIBUTED": "1", "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    saved_env = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
+    # With 8 heads and a window of 8 the config's model is `presets.py`'s
+    # flagship, which eval_checkpoint builds (the same width otherwise).
+    argv = ["--config", str(ROOT / "configs" / "mvtracker.yaml"), "--device", PAR_DEVICE, "trainer.total_steps=3",
+            "trainer.save_ckpt_freq=3", f"trainer.exp_dir={exp}", "trainer.telemetry_freq=1", "model.num_heads=8",
+            "model.sliding_window_len=8"]
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        state = cli_train.main(argv)
+        backend = dist.get_backend()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    train_s = time.perf_counter() - t0
+    paths["parallel_cli_train"] = {key: read_counts().get(key, 0) for key in ("knn", "corr", "corr_bwd")}
+    trained = {name: p.detach().clone() for name, p in state.model.named_parameters()}
+    del state
+    torch.cuda.empty_cache()
+    if backend != ("nccl" if PAR_DEVICE == "cuda" else "gloo") or not all(paths["parallel_cli_train"].values()):
+        raise AssertionError(f"cli.train distributed: backend {backend}, launches {paths['parallel_cli_train']}")
+    eval_argv = ["--exp_dir", exp, "--model_size", "flagship", "--views", "4", "--res", "128", "--frames", "12",
+                 "--n_tracks", "32", "--calib_scenes", "1", "--eval_scenes", "1", "--iters", "1", "--grid", "0",
+                 "--thresholds", "0.5", "--device", PAR_DEVICE]
+    t0 = time.perf_counter()
+    rows = eval_checkpoint.main(eval_argv)
+    eval_s = time.perf_counter() - t0
+    model = eval_checkpoint.build(eval_checkpoint.build_parser().parse_args(eval_argv))
+    eval_checkpoint.restore_checkpoint(model, exp, 3)
+    same = all(torch.equal(p, trained[name]) for name, p in model.named_parameters())
+    aj = rows["iters1_grid0"]["heldout_calibrated"]["average_jaccard"]
+    log(f"parallel (d) cli.train configs/mvtracker.yaml model.num_heads=8 model.sliding_window_len=8 with "
+        f"MVTRACKER_DISTRIBUTED=1 (world 1, backend {backend}): "
+        f"3 steps in {train_s:.1f} s with the scenes' rendering, launches {paths['parallel_cli_train']}; "
+        f"eval_checkpoint --exp_dir --model_size flagship: checkpoint step {rows['checkpoint_step']}, weights equal "
+        f"to the trainer's {same}, AJ {aj} (untrained), {eval_s:.1f} s [{smi}]")
+    if rows["checkpoint_step"] != 3 or not same or not np.isfinite(aj):
+        raise AssertionError("eval_checkpoint --exp_dir did not evaluate the distributed trainer's checkpoint")
+    del model
+
+    # (e) ICP on two views of a rendered flagship frame, card vs CPU; the
+    # z-offset search on that pair; bundle adjustment.
+    dp = render_scene(seed=0, n_views=2, n_frames=1, height=H, width=W, n_tracks=4)
+    depth = torch.as_tensor(np.asarray(dp.videodepth, np.float32))[:, 0].reshape(2, H, W)
+    intrs = torch.as_tensor(np.asarray(dp.intrs, np.float32))[:, 0]
+    extrs = torch.as_tensor(np.asarray(dp.extrs, np.float32))[:, 0]
+    world = geo.unproject_depth_to_world(depth, geo.invert_intrinsics(intrs), geo.invert_extrinsics(extrs), stride=1)
+    s = ICP_STRIDE
+    views = [world[v, ::s, ::s].reshape(-1, 3)[depth[v, ::s, ::s].reshape(-1) > 0] for v in range(2)]
+    target = torch.cat(views).contiguous()
+    r_true, t_true = rotation([0.3, 1.0, 0.2], 2.0), np.array([0.01, -0.015, 0.008])
+    source = torch.as_tensor(((target.numpy() - t_true) @ r_true).astype(np.float32))
+    reset_counts()
+    t0 = time.perf_counter()
+    r_gpu, t_gpu, fit_gpu = icp.icp(source.to(dev), target.to(dev), iters=ICP_ITERS)
+    torch.cuda.synchronize()
+    icp_ms = (time.perf_counter() - t0) * 1e3
+    icp_counts = read_counts()
+    t0 = time.perf_counter()
+    r_cpu, t_cpu, fit_cpu = icp.icp(source, target, iters=ICP_ITERS)
+    icp_cpu_s = time.perf_counter() - t0
+    ang = float(np.rad2deg(np.arccos(np.clip((np.trace(r_gpu.cpu().double().numpy() @ r_true.T) - 1) / 2, -1, 1))))
+    t_err = float(np.linalg.norm(t_gpu.cpu().numpy() - t_true))
+    pose_gap = max(float((r_gpu.cpu() - r_cpu).abs().max()), float((t_gpu.cpu() - t_cpu).abs().max()))
+    fit_gap = abs(float(fit_gpu) - float(fit_cpu))
+    log(f"parallel (e) ICP point-to-plane on views 0 and 1 of a rendered {H}x{W} frame ({target.shape[0]} points, "
+        f"every {s}th pixel), a known 2 degree / {np.linalg.norm(t_true) * 1e3:.1f} mm pose, {ICP_ITERS} iterations: "
+        f"card {icp_ms:.1f} ms, launches {icp_counts}; recovered to {ang:.4f} degree and {t_err * 1e3:.4f} mm, "
+        f"fitness {float(fit_gpu):.4f}; card vs CPU ({icp_cpu_s:.1f} s) pose {pose_gap:.3e} (limit {ICP_POSE_ATOL}), "
+        f"fitness {fit_gap:.3e} (limit {ICP_FIT_ATOL}) [{smi}]")
+    if icp_counts != {"knn": 1 + ICP_ITERS}:
+        raise AssertionError(f"ICP launches {icp_counts}, want {{'knn': {1 + ICP_ITERS}}}")
+    if not (ang < 0.1 and t_err < 1e-3 and pose_gap <= ICP_POSE_ATOL and fit_gap <= ICP_FIT_ATOL):
+        raise AssertionError("parallel (e): ICP did not recover the pose, or the card and the CPU disagree")
+    paths["parallel_icp"] = icp_counts
+
+    # The z-offset search: view 1 seen from its own camera with a z bias,
+    # against view 0 in the world.
+    z_true = 0.023
+    c2w = geo.invert_extrinsics(extrs[1:2])[0]  # [4, 4]
+    local = (views[1] - c2w[:3, 3]) @ c2w[:3, :3]
+    local[:, 2] -= z_true
+    frame = {"wrist_points_local": local.numpy(), "wrist_cam_to_world": c2w.numpy(),
+             "external_points_world": views[0].numpy()}
+    reset_counts()
+    t0 = time.perf_counter()
+    z_gpu, zfit_gpu = icp.optimize_wrist_z_offset(**frame, device=PAR_DEVICE)
+    z_ms = (time.perf_counter() - t0) * 1e3
+    z_counts = read_counts()
+    z_cpu, zfit_cpu = icp.optimize_wrist_z_offset(**frame, device="cpu")
+    log(f"parallel (e) wrist z offset {z_true} (view 1 from its camera against view 0, {local.shape[0]} and "
+        f"{views[0].shape[0]} points): card {z_gpu:.6f} (fitness {zfit_gpu:.4f}, {z_ms:.1f} ms, "
+        f"launches {z_counts}), CPU {z_cpu:.6f} (fitness {zfit_cpu:.4f}); gap {abs(z_gpu - z_cpu):.3e} "
+        f"(limit {ICP_Z_ATOL}) [{smi}]")
+    if not zfit_gpu > 0.05:  # (0, 0): the search found no usable frame or candidate
+        raise AssertionError(f"parallel (e): the z-offset search found no alignment (fitness {zfit_gpu})")
+    if not (abs(z_gpu - z_cpu) <= ICP_Z_ATOL and abs(zfit_gpu - zfit_cpu) <= ICP_FIT_ATOL):
+        raise AssertionError("parallel (e): the z-offset search differs between the card and the CPU")
+    paths["parallel_icp"] = {"knn": icp_counts["knn"] + z_counts["knn"]}
+
+    intrs_b, extrs_b, points_b, obs_b, weights_b = problem
+    cams = {}
+    for device in (PAR_DEVICE, "cpu"):
+        args = [torch.as_tensor(a, device=device) for a in problem]
+        e_only, _, msr_only = ba.refine_cameras(*args, iterations=15, refine_points=False)
+        e_joint, p_joint, msr_joint = ba.refine_cameras(*args, iterations=10)
+        cams[device] = (e_only.cpu().numpy(), e_joint.cpu().numpy(), p_joint.cpu().numpy(), float(msr_only),
+                        float(msr_joint))
+    only_gap = float(np.abs(cams[PAR_DEVICE][0] - cams["cpu"][0]).max())
+    joint_gap = float(np.abs(pixels(torch, intrs_b, *cams[PAR_DEVICE][1:3])
+                             - pixels(torch, intrs_b, *cams["cpu"][1:3])).max())
+    ranks = [r["bundle"] for r in results[2]]
+    sharded_points = np.concatenate([r["points"] for r in ranks])
+    sharded_gap = float(np.abs(pixels(torch, intrs_b, ranks[0]["extrs"], sharded_points)
+                               - pixels(torch, intrs_b, *cams[PAR_DEVICE][1:3])).max())
+    log(f"parallel (e) bundle adjustment, {extrs_b.shape[0]} cameras, {points_b.shape[0]} points: card vs CPU "
+        f"cameras only {only_gap:.3e} (limit {BA_ATOL}), joint reprojection {joint_gap:.3e} px (limit "
+        f"{BA_PIXEL_ATOL}); refine_cameras_sharded over 2 ranks vs refine_cameras on the card {sharded_gap:.3e} px; "
+        f"residuals {cams[PAR_DEVICE][3]:.3e} / {cams[PAR_DEVICE][4]:.3e} [{smi}]")
+    if not (only_gap <= BA_ATOL and joint_gap <= BA_PIXEL_ATOL and sharded_gap <= BA_PIXEL_ATOL
+            and np.array_equal(ranks[0]["extrs"], ranks[1]["extrs"])):
+        raise AssertionError("parallel (e): bundle adjustment differs")
+
+    # NCCL with two ranks on one device: once, to write down what it says.
+    t0 = time.perf_counter()
+    try:
+        outcome = f"ran: {run_local(nccl_on_one_card, 2, tmp.name, timeout=90)}"
+    except (RuntimeError, TimeoutError) as e:
+        lines = [line for line in str(e).splitlines() if line.strip()]
+        outcome = "failed: " + " | ".join(lines[-3:])[:600]
+    log(f"parallel: NCCL, 2 ranks on one device ({time.perf_counter() - t0:.1f} s): {outcome}")
+    tmp.cleanup()
+    return paths
 
 
 def main() -> int:
@@ -3125,7 +3895,7 @@ def main() -> int:
     parser.add_argument("--release", default=None,
                         help="release checkpoint (flax msgpack) for phases 9 and 10, held against the golden outputs")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases to run (of 2 to 13; 8 runs with 7) for a quicker check of one "
+                        help="comma-separated phases to run (of 2 to 14; 8 runs with 7) for a quicker check of one "
                              "part; such a run prints no kernels line and no result line")
     cli = parser.parse_args()
     only = None if cli.phases is None else {int(x) for x in cli.phases.split(",")}
@@ -3194,7 +3964,7 @@ def main() -> int:
                 raise AssertionError(f"the {path} path launched {counts}; it has no kNN or correlation stage")
     if wanted(13):
         t0 = time.perf_counter()
-        last, last_free = phase_last_models(torch, smi, knn_ops, corr_ops)
+        last, last_free, check_render = phase_last_models(torch, smi, knn_ops, corr_ops)
         log(f"phase 13 (VGGT-1B, generic scene to tracker, Dynamic 3DGS, Shape of Motion) took "
             f"{time.perf_counter() - t0:.1f} s [{smi}]")
         for path, counts in last_free.items():
@@ -3204,6 +3974,17 @@ def main() -> int:
             idle = [key for key, count in counts.items() if count == 0]
             if idle:
                 raise AssertionError(f"the {path} path launched no {idle} kernel")
+    if wanted(14):
+        t0 = time.perf_counter()
+        parallel = phase_parallel(torch, smi, knn_ops, corr_ops)
+        log(f"phase 14 (data parallelism, the sharded kNN, ICP and bundle adjustment) took "
+            f"{time.perf_counter() - t0:.1f} s [{smi}]")
+        for path, counts in parallel.items():
+            idle = [key for key, count in counts.items() if count == 0]
+            if idle:
+                raise AssertionError(f"the {path} path launched no {idle} kernel")
+    if wanted(13):
+        check_render()  # phase 13's render against its CPU reference, computed beside phase 14
     if only is not None:
         log(f"partial run of phases {sorted(only)} passed; no kernels line and no result line")
         return 0
@@ -3211,7 +3992,7 @@ def main() -> int:
     # Each path was driven with the counts at 0 just before it; every kernel
     # of a path must have been launched in that path's run.
     paths = {"serving": serving, "training": training, "large_cloud": large, "direct_knn": direct,
-             "evaluation": evaluation, **options, **data_path, **last}
+             "evaluation": evaluation, **options, **data_path, **last, **parallel}
     for path, counts in paths.items():
         idle = [key for key, count in counts.items() if count == 0]
         if idle:
@@ -3253,7 +4034,10 @@ def main() -> int:
         "11 (augmented_train, crash_replay, kubric_cli_train, realworld_cli_eval), of phase 12 (spatracker_*, "
         "cotracker2d_*, zoo_cli_eval_*, ncc_direct: no kNN or correlation stage, 0 by construction and checked) and "
         "of phase 13 (generic_scene_serving: 3 requests; dynamic3dgs_fit, shape_of_motion_fit: one fit each; vggt: "
-        "5 requests, no kNN or correlation stage, 0 and checked)")
+        "5 requests, no kNN or correlation stage, 0 and checked) and of phase 14, summed over the ranks "
+        "(parallel_knn: the schedules' timed calls; parallel_knn_mesh: 2 requests on 2 ranks; parallel_train: the "
+        "bf16 steps on 2 and 4 ranks; parallel_cli_train: 3 steps in a world of 1; parallel_icp: one ICP call and "
+        "one z-offset search)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -6,7 +6,8 @@ Restores the newest checkpoint of `trainer.exp_dir` (the port's
 `torch.save` files under `<exp_dir>/checkpoints`; the initial weights with
 a warning when there is none) into the model, or into the learned 2D
 tracker inside `cotracker2d`'s adapter, and evaluates over the configured
-dataset, printing the summary as JSON.
+dataset, printing the summary as JSON. It evaluates on one device and
+reads no mesh setting, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ def main(argv=None) -> dict:
 
     import torch
 
-    from mvtracker_torch.cli.train import check_single_device, trainable_module
+    from mvtracker_torch.cli.train import trainable_module
     from mvtracker_torch.config import build_dataset, build_model, load_config
     from mvtracker_torch.evaluation.evaluator import Evaluator
     from mvtracker_torch.evaluation.predictor import EvaluationPredictor
@@ -39,7 +40,6 @@ def main(argv=None) -> dict:
     from mvtracker_torch.training.train import Trainer
 
     cfg = load_config(args.config, args.overrides)
-    check_single_device(cfg)
     model = build_model(cfg.model, device=args.device)
     dataset = build_dataset(cfg.data)
 

@@ -14,9 +14,13 @@ applied to the held-out split (seed 777), so no reported number is tuned on
 the scenes it is reported on; CopyCat, the no-motion baseline, is scored on
 the same held-out scenes. The model runs on `--device` (default cuda, which
 raises without a GPU). With `--fp32` the GPU's convolutions and matmuls
-round as fp32 (TF32 off), as the JAX package's CPU reference computes. Only
-flax msgpack params files are read: the JAX script's orbax checkpoint trees
-(`--step`, the latest checkpoint of `--exp_dir`) are not ported.
+round as fp32 (TF32 off), as the JAX package's CPU reference computes.
+
+The weights come from `--params_msgpack` (a flax msgpack params file), or
+else from the trainer's checkpoints under `<exp_dir>/checkpoints`: the one
+of `--step`, or the newest with `--step 0`, as the JAX script restores
+them. The port reads its own `torch.save` checkpoints (`training/train.py`);
+the JAX trainer's orbax trees are not read.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import argparse
 import json
 import logging
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -36,6 +41,8 @@ from mvtracker_torch.evaluation.evaluator import Evaluator, to_host
 from mvtracker_torch.evaluation.predictor import EvaluationPredictor
 from mvtracker_torch.models.copycat import CopyCatPredictor
 from mvtracker_torch.presets import build_model
+from mvtracker_torch.training import step as step_lib
+from mvtracker_torch.training.train import TrainConfig, Trainer
 
 
 class _ReThreshold:
@@ -93,7 +100,7 @@ def parse_interp(s: str):
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--exp_dir", default=None,
-                        help="accepted for the JAX script's command lines; unused (nothing is written there)")
+                        help="experiment directory whose checkpoints to evaluate (without --params_msgpack)")
     parser.add_argument("--model_size", choices=["small", "medium", "flagship"], default="medium")
     parser.add_argument("--eval_scenes", type=int, default=8)
     parser.add_argument("--calib_scenes", type=int, default=8)
@@ -116,8 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--chain_velocity", type=float, default=0.0,
                         help="constant-velocity init of a chained window's new frames (0: static copy)")
     parser.add_argument("--thresholds", type=float, nargs="+", default=[0.02, 0.05, 0.1, 0.15, 0.2, 0.3, 0.5])
-    parser.add_argument("--step", type=int, default=0, help="orbax checkpoint steps are not ported; must stay 0")
-    parser.add_argument("--params_msgpack", default="", help="flax msgpack params file to evaluate")
+    parser.add_argument("--step", type=int, default=0, help="checkpoint step to restore (0 = latest)")
+    parser.add_argument("--params_msgpack", default="",
+                        help="flax msgpack params file to evaluate instead of a checkpoint of --exp_dir")
     parser.add_argument("--out_json", default=None)
     parser.add_argument("--device", default="cuda")
     return parser
@@ -145,16 +153,41 @@ def build(args: argparse.Namespace):
 
 
 def run(args: argparse.Namespace) -> Result:
-    """The protocol on the weights of `--params_msgpack`."""
-    if args.step:
-        raise NotImplementedError("--step: orbax checkpoint trees are not ported; pass --params_msgpack")
-    if not args.params_msgpack:
-        raise ValueError("--params_msgpack is required: only flax msgpack params files are read")
+    """The protocol on the weights of `--params_msgpack`, or of the
+    checkpoint of `--exp_dir` at `--step` (0: the newest)."""
+    if not args.params_msgpack and not args.exp_dir:
+        raise ValueError("pass --params_msgpack or --exp_dir")
     model = build(args)
-    # Strict: a model built with other flags than the file's raises here
-    # instead of reporting metrics of half-random weights.
-    load_release(args.params_msgpack, model)
-    return protocol(model, args)
+    if args.params_msgpack:
+        # Strict: a model built with other flags than the file's raises here
+        # instead of reporting metrics of half-random weights.
+        load_release(args.params_msgpack, model)
+        step = -1
+    else:
+        step = restore_checkpoint(model, args.exp_dir, args.step)
+    result = protocol(model, args)
+    result.rows["checkpoint_step"] = step
+    return result
+
+
+def restore_checkpoint(model, exp_dir: str, step: int) -> int:
+    """Load the trainer's checkpoint of `step` (0: the newest) from
+    `<exp_dir>/checkpoints` into `model` (strictly); returns its step."""
+    trainer = Trainer(model, TrainConfig(exp_dir=exp_dir, tensorboard=False, watchdog_timeout_s=0))
+    steps = trainer.checkpoint_steps()
+    if not steps:
+        ckpt_dir = Path(trainer.ckpt_dir)
+        orbax = ckpt_dir.is_dir() and any(p.is_dir() and p.name.isdigit() for p in ckpt_dir.iterdir())
+        raise FileNotFoundError(
+            f"no checkpoint of the port's trainer (step_<n>.pt) in {ckpt_dir}"
+            + ("; it holds an orbax checkpoint tree of the JAX trainer, which the port does not read" if orbax else "")
+        )
+    step = step or steps[-1]
+    if step not in steps:
+        raise FileNotFoundError(f"no checkpoint of step {step} in {trainer.ckpt_dir} (it has {steps})")
+    trainer.restore(step_lib.init_state(model, trainer.optimizer), step)
+    model.eval()
+    return step
 
 
 def protocol(model, args: argparse.Namespace) -> Result:

@@ -18,9 +18,10 @@ What the port does with the settings:
 - `build_dataset` builds `synthetic`, `kubric` and the `-multiview` names
   (Kubric, Panoptic Studio, DexYCB); `droid` raises `NotImplementedError`
   (ROADMAP A.6: it needs `droid/depth_video.py` and `droid/transforms.py`).
-- `mesh_data`, `mesh_model` and `shard_views` ask for a device mesh, which
-  waits for ROADMAP A.5; the CLIs raise when one asks for more than one
-  device.
+- `mesh_data`, `mesh_model` and `shard_views` shape the training mesh
+  (`parallel/mesh.py`) when `cli.train` runs in a world of more than one
+  process (`MVTRACKER_DISTRIBUTED=1`); `cli.eval` reads none of them and
+  evaluates on one device, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -198,7 +199,7 @@ def _model_kwargs(mc: ModelConfig, cls) -> dict:
     accepted = set()
     for klass in (cls, MVTracker):
         accepted |= set(inspect.signature(klass.__init__).parameters)
-    accepted -= {"self", "device", "kwargs", "not_ported"}
+    accepted -= {"self", "device", "kwargs"}
     return {k: v for k, v in dataclasses.asdict(mc).items() if k in accepted and v is not None}
 
 

@@ -33,6 +33,12 @@ class PrefetchLoader:
 
     `dataset` is any indexable returning a Datapoint; `batch_size` scenes
     are collated into the train-step batch dict.
+
+    Data parallelism: with `process_index` and `process_count` every process
+    walks the same seeded permutation and takes the disjoint stride
+    `order[process_index::process_count]`, so one epoch is a partition of
+    the dataset, as in the JAX loader. `process_index` without
+    `process_count` raises.
     """
 
     def __init__(
@@ -44,6 +50,8 @@ class PrefetchLoader:
         num_workers: int = 4,
         prefetch: int = 2,
         drop_last: bool = True,
+        process_index: Optional[int] = None,
+        process_count: Optional[int] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -55,6 +63,8 @@ class PrefetchLoader:
         self.epoch = 0
         self.cursor = 0
         self._executor = None
+        self.process_index = process_index
+        self.process_count = process_count
 
     # -- statefulness --------------------------------------------------
     def state_dict(self) -> dict:
@@ -68,9 +78,12 @@ class PrefetchLoader:
     # -- iteration -----------------------------------------------------
     def _order(self, epoch: int) -> np.ndarray:
         n = len(self.dataset)
-        if not self.shuffle:
-            return np.arange(n)
-        return np.random.default_rng(self.seed + epoch).permutation(n)
+        order = np.random.default_rng(self.seed + epoch).permutation(n) if self.shuffle else np.arange(n)
+        if self.process_count is None:
+            if self.process_index is not None:
+                raise ValueError("process_index given without process_count")
+            return order
+        return order[(self.process_index or 0) :: self.process_count]
 
     def __iter__(self) -> Iterator[dict]:
         while True:

@@ -32,9 +32,16 @@ features stay fp32.
 Options of the JAX module, all off by default (reference behaviour):
 `corr_neighbors_per_level`, `corr_knn_reuse`, `corr_filter_invalid_depth`,
 `global_match_init`, `chain_velocity`, `normalize_scene_in_fwd_pass`,
-`use_point_transformer`, `collect_stats` and `support_memory_tokens` (the
-update transformer's LoFTR memory, `models/updateformer.py`). `knn_mesh` (a
-sharded kNN) is not ported and raises.
+`use_point_transformer`, `collect_stats`, `support_memory_tokens` (the
+update transformer's LoFTR memory, `models/updateformer.py`) and `knn_mesh`.
+
+With `knn_mesh` (a `parallel.mesh.Mesh` of an initialised process group)
+every rank of the mesh's `knn_shard_axis` group runs the whole forward, and
+each level of at least `knn_shard_min_points` points is searched split over
+that group (`_knn_sharded_call`): the same neighbours as one search, ties
+included. Inside a train step, `sharded(views=, tracks=)` splits the
+encoding over views and the correlation stage over tracks across a group
+(`training/step.py`).
 
 The variants subclass this module and replace `_build_context`,
 `_feat_init`, `_corr_knn` and `_corr_features` (`models/spatracker.py`,
@@ -60,14 +67,9 @@ from mvtracker_torch.models.point_transformer import SerializedPointTransformer
 from mvtracker_torch.models.updateformer import EfficientUpdateFormer
 from mvtracker_torch.ops import corr as corr_ops
 from mvtracker_torch.ops import knn as knn_ops
+from mvtracker_torch.parallel import mesh as mesh_lib
 from mvtracker_torch.utils import embeddings as emb
 from mvtracker_torch.utils import geometry as geo
-
-# Options of the JAX module that this port does not implement yet, with the
-# value that leaves them off. Setting any other value raises.
-_NOT_PORTED = {
-    "knn_mesh": None,
-}
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -196,15 +198,14 @@ class MVTracker(nn.Module):
         remat_encoder: bool = True,
         collect_stats: bool = False,
         knn_backend: str = "auto",
+        knn_mesh: Optional[mesh_lib.Mesh] = None,
+        knn_shard_axis: str = "model",
+        knn_shard_min_points: int = 2048,
         device="cuda",
-        **not_ported,
     ):
         super().__init__()
-        for name, value in not_ported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"MVTracker got an unexpected keyword argument {name!r}")
-            if value != _NOT_PORTED[name]:
-                raise NotImplementedError(f"MVTracker option {name}={value!r} is not ported yet")
+        if knn_mesh is not None and not torch.distributed.is_initialized():
+            raise RuntimeError("knn_mesh needs an initialised torch.distributed process group")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {compute_dtype!r}")
         device = resolve_device(device)
@@ -263,6 +264,15 @@ class MVTracker(nn.Module):
         if knn_backend not in knn_ops.BACKENDS:
             raise ValueError(f"knn_backend must be one of {knn_ops.BACKENDS}, got {knn_backend!r}")
         self.knn_backend = knn_backend  # which kNN kernel serves CUDA tensors, see `ops/knn.py`
+        # Levels of at least knn_shard_min_points points search their cloud
+        # split over the mesh's knn_shard_axis group.
+        self.knn_mesh = knn_mesh
+        self.knn_shard_axis = knn_shard_axis
+        self.knn_shard_min_points = knn_shard_min_points
+        # Process groups that split the encoding's views and the correlation
+        # stage's tracks, set by `sharded` for one step.
+        self._view_group = None
+        self._track_group = None
 
         self.fnet = BasicEncoder(output_dim=fmaps_dim, stride=stride, dtype=self.dtype, device=device)
         self.updateformer = EfficientUpdateFormer(
@@ -322,8 +332,31 @@ class MVTracker(nn.Module):
     # Sub-computations
     # ------------------------------------------------------------------
 
+    @contextlib.contextmanager
+    def sharded(self, views=None, tracks=None):
+        """Within the block, split the encoding's views over the process
+        group `views` and the correlation stage's tracks over `tracks` (each
+        rank computes its slice; the slices are gathered with a gradient
+        that sums over the group, `parallel.mesh.gather_cat`). The outputs
+        are those of the whole computation on every rank."""
+        saved = self._view_group, self._track_group
+        self._view_group, self._track_group = views, tracks
+        try:
+            yield self
+        finally:
+            self._view_group, self._track_group = saved
+
     def compute_fmaps(self, rgbs: torch.Tensor) -> torch.Tensor:
         """[V, T, H, W, 3] in 0..255 -> [V, T, H/s, W/s, C] fp32, all frames at once."""
+        group = self._view_group
+        if group is not None:
+            sizes = mesh_lib.split_sizes(rgbs.shape[0], torch.distributed.get_world_size(group))
+            me = torch.distributed.get_rank(group)
+            local = rgbs.narrow(0, sum(sizes[:me]), sizes[me])
+            return mesh_lib.gather_cat(self._encode(local), group, 0, sizes)
+        return self._encode(rgbs)
+
+    def _encode(self, rgbs: torch.Tensor) -> torch.Tensor:
         v, t, h, w, _ = rgbs.shape
         x = 2.0 * (rgbs.reshape(v * t, h, w, 3).float() / 255.0) - 1.0
         fmaps = self._maybe_remat(self.remat_encoder, self.fnet, x.permute(0, 3, 1, 2))  # NCHW
@@ -388,10 +421,16 @@ class MVTracker(nn.Module):
 
         small = [lvl for lvl in levels if context_w[lvl][0].shape[1] <= SMALL_LEVEL_POINTS]
         batched = len(small) > 1
+        use_shard = self.knn_mesh is not None and self.knn_mesh.shape[self.knn_shard_axis] > 1
         dists, idx = {}, {}
         for lvl in levels:
-            if not (batched and lvl in small):
-                dists[lvl], idx[lvl] = knn_ops.knn(knn_ref(lvl), coords, self.corr_k(lvl), backend=self.knn_backend)
+            if batched and lvl in small:
+                continue
+            ref = knn_ref(lvl)
+            if use_shard and ref.shape[1] >= self.knn_shard_min_points:
+                dists[lvl], idx[lvl] = self._knn_sharded_call(ref, coords, self.corr_k(lvl))
+            else:
+                dists[lvl], idx[lvl] = knn_ops.knn(ref, coords, self.corr_k(lvl), backend=self.knn_backend)
         if batched:
             pmax = max(context_w[lvl][0].shape[1] for lvl in small)
             kmax = max(self.corr_k(lvl) for lvl in small)
@@ -409,6 +448,45 @@ class MVTracker(nn.Module):
                 idx[lvl] = torch.clamp(torch.where(bad, i[..., :1], i), max=context_w[lvl][0].shape[1] - 1)
                 dists[lvl] = torch.where(bad, d[..., :1], d)
         return dists, idx
+
+    def _knn_sharded_call(self, ref, coords, k):
+        """One level's kNN split over the mesh's `knn_shard_axis` group: ref
+        [S, P, 3] whole on every rank, coords [S, N, 3]. The cloud is padded
+        to a multiple of the group's size with SENTINEL points (never in a
+        top-k: a level holds at least k real points) and this rank searches
+        its shard. The ring schedule when N * k exceeds a shard's points
+        (JAX's measured crossover), else the all-gather merge. Returns
+        (dists, indices into the level) [S, N, k], equal on every rank."""
+        group = self.knn_mesh.group(self.knn_shard_axis)
+        d = torch.distributed.get_world_size(group)
+        p = ref.shape[1]
+        pad = (-p) % d
+        if pad:
+            ref = F.pad(ref, (0, 0, 0, pad), value=SENTINEL)
+        n_local = (p + pad) // d
+        shard = ref[:, torch.distributed.get_rank(group) * n_local :][:, :n_local].contiguous()
+        schedule = knn_ops.knn_sharded_ring if coords.shape[1] * k > n_local else knn_ops.knn_sharded
+        dists, idx = schedule(shard, coords, k, group, backend=self.knn_backend)
+        return dists, torch.clamp(idx, max=p - 1) if pad else idx
+
+    def _corr_features_split(self, context_w, coords, ffeats, knn_cache=None, stats=None):
+        """`_corr_features` with the tracks split over the `sharded` track
+        group: this rank searches and correlates its slice of the tracks,
+        and the slices are gathered before the update transformer."""
+        group = self._track_group
+        n = coords.shape[1]
+        sizes = mesh_lib.split_sizes(n, torch.distributed.get_world_size(group))
+        me = torch.distributed.get_rank(group)
+        lo, size = sum(sizes[:me]), sizes[me]
+        if knn_cache is not None:
+            knn_cache = tuple({lvl: a.narrow(1, lo, size) for lvl, a in part.items()} for part in knn_cache)
+        local_stats = {} if stats is not None else None
+        fc = self._corr_features(context_w, coords.narrow(1, lo, size), ffeats.narrow(1, lo, size), knn_cache,
+                                 local_stats)
+        if stats is not None:
+            for lvl, (mean,) in local_stats.items():  # each slice's mean, weighted back to all tracks
+                stats.setdefault(lvl, []).append(mesh_lib.all_reduce(mean * size, group) / n)
+        return mesh_lib.gather_cat(fc, group, 1, sizes)
 
     def _corr_features(self, context_w, coords, ffeats, knn_cache=None, stats=None):
         """Correlation features per (frame, track): [S, N, sum_l k_l * F].
@@ -519,7 +597,8 @@ class MVTracker(nn.Module):
         preds = []
         for _ in range(iters):
             coords = coords.detach()
-            fcorrs = self._corr_features(context_w, coords, ffeats, knn_cache, stats)
+            corr_features = self._corr_features if self._track_group is None else self._corr_features_split
+            fcorrs = corr_features(context_w, coords, ffeats, knn_cache, stats)
             flows_emb = emb.coord_embedding_3d(coords - coords[0:1], self.flow_embed_dim)
             x = torch.cat([flows_emb, fcorrs, ffeats, mask_and_vis], dim=-1)
             x = x + pos_embed[None] + times_embed[:, None]

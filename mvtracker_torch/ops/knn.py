@@ -22,6 +22,13 @@ among equal distances, so its indices equal a stable sort's.
 `knn` takes a plain version only for tensors on the CPU. For CUDA tensors it
 launches the kernel or raises.
 
+`knn_sharded` and `knn_sharded_ring` search a cloud split over the ranks of
+a process group (the JAX module's two schedules, there inside a
+`shard_map`): each rank searches its shard with `knn`, so the shard's size
+picks the kernel, and the candidates are merged by the key (distance, global
+index). Every rank of the group gets the same bits, which equal a global
+search that puts the lower index first among equal distances.
+
 Contract shared by all (the JAX package's `knn_reference`):
 - distances are sqrt(max(d^2, 1e-12)) in fp32;
 - for k > N, ranks >= N get the distance 1e15 (sqrt of the 1e30 fill) and
@@ -34,8 +41,10 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.distributed as dist
 
 from mvtracker_torch.ops import _cuda
+from mvtracker_torch.parallel import mesh as mesh_lib
 
 _BIG = 1e30
 MAX_K = 32  # the kernels keep one top-k entry per lane of a warp
@@ -254,3 +263,57 @@ def knn(ref: torch.Tensor, query: torch.Tensor, k: int, backend: str = "auto"):
     if ref.device.type == "cpu" and query.device.type == "cpu":
         return (knn_exact_plain if backend == "exact" else knn_plain)(ref, query, k)
     raise ValueError(f"knn: unsupported devices {ref.device}, {query.device}")
+
+
+# ---------------------------------------------------------------------------
+# kNN over a cloud split across the ranks of a process group
+# ---------------------------------------------------------------------------
+
+
+def _pack(dists: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(distance, index) as one int64 key that sorts as the pair: the fp32
+    bits of a distance >= 0 order as the distance, and sit above the index."""
+    return (dists.float().contiguous().view(torch.int32).to(torch.int64) << 32) | idx.to(torch.int64)
+
+
+def _unpack(keys: torch.Tensor):
+    dists = (keys >> 32).to(torch.int32).view(torch.float32)
+    return dists, keys & 0xFFFFFFFF
+
+
+def _merge(keys: torch.Tensor, k: int) -> torch.Tensor:
+    return torch.sort(keys, dim=-1).values[..., :k]
+
+
+def _global_keys(ref_local, query, k, owner: int, backend: str) -> torch.Tensor:
+    """The shard's top-k as keys, its indices offset to the whole cloud's."""
+    d, i = knn(ref_local, query, k, backend=backend)
+    return _pack(d, i + owner * ref_local.shape[1])
+
+
+def knn_sharded(ref_local: torch.Tensor, query: torch.Tensor, k: int, group, backend: str = "auto"):
+    """kNN when the cloud is split over the ranks of `group`: this rank holds
+    shard `rank in group` of equal shards, `ref_local` [B, N/D, 3], and the
+    whole query set [B, M, 3]. Each rank's top-k, one all-gather of the D * k
+    candidates, then a merge. Returns (dists, global indices) [B, M, k]."""
+    keys = _global_keys(ref_local, query, k, dist.get_rank(group), backend)
+    return _unpack(_merge(torch.cat(mesh_lib.all_gather(keys, group), dim=-1), k))
+
+
+def knn_sharded_ring(ref_local: torch.Tensor, query: torch.Tensor, k: int, group, backend: str = "auto"):
+    """The same search with the shards passed around the group's ring: at
+    each of D steps a rank folds the visiting shard's top-k into its running
+    best, then hands the shard to the next rank. One shard crosses a link
+    per step instead of D * k candidates per query, the better schedule when
+    M * k exceeds N / D. The best starts at distance `_BIG`, index 0."""
+    n_ranks, me = dist.get_world_size(group), dist.get_rank(group)
+    b, m, _ = query.shape
+    best = _pack(torch.full((b, m, k), _BIG, device=query.device), torch.zeros((b, m, k), dtype=torch.int64,
+                                                                              device=query.device))
+    shard = ref_local
+    for step in range(n_ranks):
+        owner = (me - step) % n_ranks
+        best = _merge(torch.cat([best, _global_keys(shard, query, k, owner, backend)], dim=-1), k)
+        if step + 1 < n_ranks:
+            shard = mesh_lib.ring_shift(shard, group)
+    return _unpack(best)

@@ -13,19 +13,32 @@ learning rate scales both.
 
 A batch is a dict with a leading scene axis, as in the JAX package. The
 model runs one scene, so the step loops over the scenes, means the losses
-and takes the largest `reproj_dev`. The `mesh`, `shard_views` and
-`shard_tracks` arguments of the JAX step are not ported.
+and takes the largest `reproj_dev`.
+
+With a `mesh` (`parallel/mesh.py`) each process runs the step on the scenes
+of its data coordinate, and the gradients are summed over the world before
+the optimizer, so every rank applies the gradient of the mean loss over all
+scenes and the parameters stay equal: the JAX step's all-reduce, which
+there too comes before the non-finite guard and the clip. `shard_views` and
+`shard_tracks` split the encoding and the correlation stage over the
+`model` group (`MVTracker.sharded`); in JAX they are placement hints, and
+here too they leave the numbers as they are (and, as there, do nothing
+without a mesh). Every rank of a model group computes the same loss, so
+each scales its loss by 1 / (scenes x world size) before the backward, and
+the world's sum of the gradients is the gradient of the mean loss.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from contextlib import nullcontext
 
 import torch
 from torch import nn
 from torch.profiler import record_function
 
+from mvtracker_torch.parallel import mesh as mesh_lib
 from mvtracker_torch.training import losses
 from mvtracker_torch.utils import geometry
 
@@ -197,19 +210,28 @@ def make_train_step(
     gamma: float = 0.8,
     vis_weight: float = 0.1,
     feat_id_weight: float = 0.0,
+    mesh=None,
+    shard_views: bool = False,
+    shard_tracks: bool = False,
 ):
     """Build the train step: (state, batch) -> (state, metrics).
 
-    `batch` is a dict of arrays with a leading scene axis. Each scene's
-    graph is built, differentiated and freed in turn, its gradient scaled by
+    `batch` is a dict of arrays with a leading scene axis; with a `mesh`,
+    this process's scenes (as many on every data rank). Each scene's graph
+    is built, differentiated and freed in turn, its gradient scaled by
     1 / scenes, so the accumulated gradient is that of the mean loss.
     `metrics` holds scalar tensors on the model's device: `loss`,
     `grad_norm` (the global norm before the non-finite guard and the clip),
-    `xyz_loss`, `vis_loss`, `reproj_dev`, and `feat_id` with that loss on.
-    The forward, the backward and the optimizer run inside profiler spans
+    `xyz_loss`, `vis_loss`, `reproj_dev`, and `feat_id` with that loss on;
+    with a mesh, means over all scenes and the largest `reproj_dev`. The
+    forward, the backward and the optimizer run inside profiler spans
     `stage::forward`, `stage::backward` and `stage::optimizer`, which cost
     nothing to speak of while no profiler records.
     """
+    if shard_tracks and getattr(model, "knn_mesh", None) is not None:
+        raise ValueError("shard_tracks and the model's knn_mesh both split the correlation stage; use one")
+    model_group = mesh.group("model") if mesh is not None else None
+    n_ranks = 1 if mesh is None else mesh.shape["data"] * mesh.shape["model"]
 
     def train_step(state: TrainState, batch: dict):
         if state.model is not model:
@@ -218,21 +240,28 @@ def make_train_step(
         n_scenes = len(batch["rgbs"])
         model.zero_grad(set_to_none=True)
         totals, per_scene = [], []
-        for i in range(n_scenes):
-            scene = {k: v[i] for k, v in batch.items() if getattr(v, "ndim", 0) > 0}
-            with record_function("stage::forward"):
-                total, parts = scene_loss(model, scene, iters, gamma, vis_weight, feat_id_weight)
-            with record_function("stage::backward"):
-                (total / n_scenes).backward()
-            totals.append(total.detach())
-            per_scene.append({k: v.detach() for k, v in parts.items()})
+        split = model.sharded(views=model_group if shard_views else None,
+                              tracks=model_group if shard_tracks else None) if mesh is not None else nullcontext()
+        with split:
+            for i in range(n_scenes):
+                scene = {k: v[i] for k, v in batch.items() if getattr(v, "ndim", 0) > 0}
+                with record_function("stage::forward"):
+                    total, parts = scene_loss(model, scene, iters, gamma, vis_weight, feat_id_weight)
+                with record_function("stage::backward"):
+                    (total / (n_scenes * n_ranks)).backward()
+                totals.append(total.detach())
+                per_scene.append({k: v.detach() for k, v in parts.items()})
         grads = {name: torch.zeros_like(p) if p.grad is None else p.grad for name, p in params.items()}
-        metrics = {"loss": torch.stack(totals).mean(), "grad_norm": global_norm(grads.values())}
+        metrics = {"loss": torch.stack(totals).mean()}
         for key in per_scene[0]:
             vals = torch.stack([p[key] for p in per_scene])
             # Deviations aggregate by max (one bad scene must trip the
             # guard), losses by mean.
             metrics[key] = vals.max() if key == "reproj_dev" else vals.mean()
+        if mesh is not None:
+            _sum_over_world(grads)
+            metrics = _aggregate(metrics, n_ranks)
+        metrics["grad_norm"] = global_norm(grads.values())
         with record_function("stage::optimizer"):
             optimizer.update(params, grads, state.opt_state)
         model.zero_grad(set_to_none=True)
@@ -240,3 +269,28 @@ def make_train_step(
         return state, metrics
 
     return train_step
+
+
+def _sum_over_world(grads: dict) -> None:
+    """Replace every gradient by its sum over the world's ranks (one
+    all-reduce of all of them, flattened, over the default group)."""
+    flat = torch.cat([g.reshape(-1).float() for g in grads.values()])
+    mesh_lib.all_reduce(flat, torch.distributed.group.WORLD)
+    offset = 0
+    for g in grads.values():
+        g.copy_(flat[offset : offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def _aggregate(metrics: dict, n_ranks: int) -> dict:
+    """The metrics over the world's `n_ranks` ranks: `reproj_dev` its max,
+    the rest means (the ranks of a model group hold the same values, so
+    these are the means over the data ranks)."""
+    keys = [k for k in metrics if k != "reproj_dev"]
+    world = torch.distributed.group.WORLD
+    sums = mesh_lib.all_reduce(torch.stack([metrics[k].float() for k in keys]), world)
+    out = {k: sums[i] / n_ranks for i, k in enumerate(keys)}
+    if "reproj_dev" in metrics:
+        out["reproj_dev"] = mesh_lib.all_reduce(metrics["reproj_dev"].float().clone(), world,
+                                                op=torch.distributed.ReduceOp.MAX)
+    return out

@@ -29,8 +29,15 @@
   around checkpoints and evaluations, cancelled when `fit` ends), and the
   GPU's memory in the telemetry.
 
-Crash batches are replayed with `training/replay.py`. The device mesh waits
-for ROADMAP A.5.
+Crash batches are replayed with `training/replay.py`.
+
+With a `mesh` (`parallel/mesh.py`) every process runs `fit` with its own data
+iterator, which gives the scenes of its data coordinate (`cli/train.py`
+stripes the loader so). Rank 0 alone restores or warm-starts and then
+broadcasts the parameters, the optimizer state and the step; it alone
+writes checkpoints, TensorBoard, W&B and the crash dump, and runs the
+evaluation hook. A stop signal on any rank stops every rank after the same
+step. The watchdog runs on every rank.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import numpy as np
 import torch
 
 from mvtracker_torch import convert
+from mvtracker_torch.parallel import mesh as mesh_lib
 from mvtracker_torch.training import step as step_lib
 from mvtracker_torch.utils import observability as obs
 
@@ -118,9 +126,12 @@ _CKPT_NAME = re.compile(r"step_(\d+)\.pt$")
 
 
 class Trainer:
-    def __init__(self, model, cfg: TrainConfig):
+    def __init__(self, model, cfg: TrainConfig, mesh=None, shard_views: bool = False):
         self.model = model
         self.cfg = cfg
+        self.mesh = mesh
+        self.shard_views = shard_views
+        self.is_main = mesh is None or mesh.rank == 0
         self.optimizer = step_lib.make_optimizer(
             lr=cfg.lr,
             weight_decay=cfg.weight_decay,
@@ -134,7 +145,7 @@ class Trainer:
         self.profile_trace: Optional[str] = None  # the path of the last profiler window's trace
 
     def _tb_writer(self):
-        if self._tb is None and self.cfg.tensorboard:
+        if self._tb is None and self.cfg.tensorboard and self.is_main:
             try:
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError as e:
@@ -187,12 +198,16 @@ class Trainer:
         latest = self.latest_step()
         if latest is None:
             return state, 0
-        payload = torch.load(self._ckpt_path(latest), map_location=state.model.device, weights_only=True)
+        return self.restore(state, latest), latest
+
+    def restore(self, state: step_lib.TrainState, step: int) -> step_lib.TrainState:
+        """Load the checkpoint of `step` into `state` (the model in place)."""
+        payload = torch.load(self._ckpt_path(step), map_location=state.model.device, weights_only=True)
         state.model.load_state_dict(payload["model"])
         state.opt_state = payload["opt_state"]
         state.step = int(payload["step"])
-        logging.info("resumed from checkpoint step %d", latest)
-        return state, latest
+        logging.info("resumed from checkpoint step %d", step)
+        return state
 
     # -- warm start ----------------------------------------------------
     def _migrate_corr_width(self, loaded: dict, current: dict) -> dict:
@@ -299,8 +314,33 @@ class Trainer:
                 gamma=self.cfg.gamma,
                 vis_weight=self.cfg.visibility_loss_weight,
                 feat_id_weight=self.cfg.feat_id_loss_weight,
+                mesh=self.mesh,
+                shard_views=self.shard_views,
             )
         return self._steps[iters]
+
+    def _broadcast_state(self, state: step_lib.TrainState, step: int) -> int:
+        """Rank 0's parameters, buffers, optimizer state and step on every
+        rank; returns the step."""
+        group = torch.distributed.group.WORLD
+        for t in state.model.state_dict().values():
+            mesh_lib.broadcast(t, 0, group)
+        for name in sorted(state.opt_state["mu"]):
+            mesh_lib.broadcast(state.opt_state["mu"][name], 0, group)
+            mesh_lib.broadcast(state.opt_state["nu"][name], 0, group)
+        meta = torch.tensor([int(state.opt_state["count"]), state.step, step], device=state.model.device)
+        mesh_lib.broadcast(meta, 0, group)
+        state.opt_state["count"], state.step, step = (int(v) for v in meta.tolist())
+        return step
+
+    def _should_stop(self, agreed: bool) -> bool:
+        """Without a mesh, this process's stop request; with one, what the
+        ranks `agreed` on at the last synchronised step."""
+        return self._stop_requested if self.mesh is None else agreed
+
+    def _any_rank_stops(self) -> bool:
+        flag = torch.tensor([float(self._stop_requested)], device=self.model.device)
+        return bool(mesh_lib.all_reduce(flag, torch.distributed.group.WORLD, op=torch.distributed.ReduceOp.MAX).item())
 
     def _install_signal_handlers(self):
         def handler(signum, frame):
@@ -338,9 +378,13 @@ class Trainer:
         os.makedirs(cfg.exp_dir, exist_ok=True)
         if state is None:
             state = step_lib.init_state(self.model, self.optimizer)
-        if cfg.warm_start_ckpt and self.latest_step() is None:
-            state = self.warm_start(state, cfg.warm_start_ckpt)
-        state, start_step = self.restore_latest(state)
+        start_step = 0
+        if self.is_main:
+            if cfg.warm_start_ckpt and self.latest_step() is None:
+                state = self.warm_start(state, cfg.warm_start_ckpt)
+            state, start_step = self.restore_latest(state)
+        if self.mesh is not None:
+            start_step = self._broadcast_state(state, start_step)
 
         total = max_steps if max_steps is not None else cfg.total_steps
         data_times, step_times = [], []
@@ -353,7 +397,7 @@ class Trainer:
                 os.path.join(cfg.exp_dir, "profile"), start=cfg.profile_start_step, n_steps=cfg.profile_n_steps)
         self._watchdog(first=True)  # the first step builds the kernels
         wandb_run = None
-        if cfg.wandb:
+        if cfg.wandb and self.is_main:
             try:
                 import wandb
 
@@ -361,8 +405,9 @@ class Trainer:
                                        sync_tensorboard=True)
             except Exception as e:  # absent, or no way to reach its service: train on without it
                 logging.warning("wandb requested but unavailable (%s); continuing without", e)
+        stop = False  # with a mesh: every rank's request, reduced where the step synchronises
         try:
-            while step < total and not self._stop_requested:
+            while step < total and not self._should_stop(stop):
                 if profiler is not None:
                     profiler.step(step)
                 t0 = time.perf_counter()
@@ -382,6 +427,10 @@ class Trainer:
                 )
                 if do_sync:
                     loss = float(metrics["loss"])  # blocks: the synchronisation point
+                    if self.mesh is not None:
+                        # do_sync falls on the same steps on every rank, so
+                        # all ranks stop after the same step.
+                        stop = self._any_rank_stops()
                 t2 = time.perf_counter()
 
                 data_times.append(t1 - t0)
@@ -440,9 +489,9 @@ class Trainer:
                 long_block = step % cfg.save_ckpt_freq == 0 or (eval_fn is not None and step % cfg.eval_freq == 0)
                 if long_block:
                     self._watchdog(first=True)
-                if step % cfg.save_ckpt_freq == 0:
+                if step % cfg.save_ckpt_freq == 0 and self.is_main:
                     self.save(state, step)
-                if eval_fn is not None and step % cfg.eval_freq == 0:
+                if eval_fn is not None and step % cfg.eval_freq == 0 and self.is_main:
                     eval_fn(state, step)
                 if long_block:
                     self._watchdog()
@@ -450,6 +499,8 @@ class Trainer:
             # Crash forensics: two best-effort saves, each on its own, so a
             # failed batch dump (or no batch at all, when the first fetch
             # raised) does not also lose the checkpoint.
+            if not self.is_main:
+                raise
             crash_dir = os.path.join(cfg.exp_dir, "crash")
             os.makedirs(crash_dir, exist_ok=True)
             try:
@@ -473,6 +524,6 @@ class Trainer:
             if wandb_run is not None:
                 wandb_run.finish()
 
-        if self._stop_requested:
+        if self._should_stop(stop) and self.is_main:
             self.save(state, step)
         return state

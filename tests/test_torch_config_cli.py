@@ -230,17 +230,6 @@ def test_cli_eval_copycat(tmp_path, capsys):
     assert summary["n_sequences"] == 1
 
 
-@pytest.mark.parametrize("argv,env", [
-    (["mesh_model=2"], {}), (["shard_views=true"], {}), (["mesh_data=4"], {}), ([], {"MVTRACKER_DISTRIBUTED": "1"}),
-])
-def test_cli_refuses_more_than_one_device(monkeypatch, argv, env):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    for main in (t_train.main, t_eval.main):
-        with pytest.raises(NotImplementedError, match="A.5"):
-            main(["--device", "cpu", *argv])
-
-
 def test_clis_default_to_cuda():
     for module in (t_train, t_eval, t_serve):
         assert module.build_parser().parse_args([]).device == "cuda"

@@ -111,15 +111,6 @@ def test_weights_round_trip():
         np.testing.assert_array_equal(got[path], leaf, err_msg=jax.tree_util.keystr(path))
 
 
-@pytest.mark.parametrize("name", sorted(t_mvt._NOT_PORTED))
-def test_unported_options_raise(name):
-    off = t_mvt._NOT_PORTED[name]
-    on = {bool: True, int: 16, float: 0.5}.get(type(off), object())
-    t_mvt.MVTracker(**{name: off}, **CFG, device="cpu")  # the off value is accepted
-    with pytest.raises(NotImplementedError, match=name):
-        t_mvt.MVTracker(**{name: on}, **CFG, device="cpu")
-
-
 def test_unknown_option_and_dtype_raise():
     with pytest.raises(TypeError):
         t_mvt.MVTracker(corr_backend="pallas", device="cpu")

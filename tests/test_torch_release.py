@@ -296,10 +296,11 @@ def test_cli_gives_the_jax_scripts_json(golden, tmp_path):
     assert want["checkpoint_step"] == -1 and want[KEY]["calibrated_threshold"] in args.thresholds
 
 
-def test_cli_refuses_what_is_not_ported():
+def test_cli_refuses_what_is_not_ported(tmp_path):
     parser = t_cli.build_parser()
-    with pytest.raises(NotImplementedError, match="orbax"):
-        t_cli.run(parser.parse_args(["--params_msgpack", RELEASE, "--step", "5", "--device", "cpu"]))
+    (tmp_path / "checkpoints" / "5").mkdir(parents=True)  # the JAX trainer's orbax layout
+    with pytest.raises(FileNotFoundError, match="orbax"):
+        t_cli.run(parser.parse_args(["--exp_dir", str(tmp_path), "--step", "5", "--device", "cpu"]))
     with pytest.raises(ValueError, match="params_msgpack"):
         t_cli.run(parser.parse_args(["--device", "cpu"]))
     # The inference knobs are ported: they reach the model.
