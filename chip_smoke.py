@@ -120,7 +120,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     tracks, its K1 calls held against the exact plain kNN and timed;
 14. data parallelism, the sharded kNN and the geometric solvers, with the
     ranks as processes on this one card (gloo; each loads the kernels phase
-    1 built): (a) `knn_sharded` and `knn_sharded_ring` on 2 and 4 ranks at
+    1 built), started once: 4 ranks run the 4-rank parts, then ranks 0 and
+    1 regroup into a world of 2 for the 2-rank parts, all beside this
+    process's references, (d), (e) and the NCCL probe: (a) `knn_sharded`
+    and `knn_sharded_ring` on 2 and 4 ranks at
     the flagship's level 0 (12 frames x 16384 points, 256 queries: the
     gather-merge; 2048: the ring) and on 2 ranks at the large cloud's
     (281600 points: K4 whole, K1 per half), distances bit-equal to the
@@ -137,7 +140,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     z-offset search on its two views, card against the CPU, and bundle
     adjustment card against CPU and over 2 ranks; and once, NCCL with two
     ranks on the one device, to print what it says;
-15. a JSON line for the kernels, then the result line.
+15. the DROID data factory on the port's own file formats (the GPU host has
+    neither OpenCV nor h5py): (a) the FFV1 depth-video codec on 60 frames of
+    1280x720 (holes, a far band near 65 m), millimetres bit-equal, encode
+    and decode ms a frame, and a DROID-shaped trajectory.h5 (300 steps)
+    written and read contiguous and chunked; (b) a synthetic episode (2
+    external cameras and the wrist camera at 256x192, 40 frames: raw h5 ->
+    FK pipeline -> rendered rgb.npz and depth.mkv), built in a process of
+    its own from the top of the script, and `load_droid_episode` equal to
+    its files; (c) `cli.droid refine` recovering an injected 3 cm wrist
+    bias to 1 mm, card against CPU, K1 counted; (d) `cli.droid track`, the
+    flagship bf16 with seeded weights on the gripper queries and on 256
+    mask-guided depth queries (--chunk_frames 16: 3 chained segments), K1
+    and K2 counted, the overlay written, 3 warm requests timed, and one
+    fp32 request (TF32 off, exact kNN) against the plain CPU path; (e)
+    `cli.droid reproject` with its depth videos read back bit-equal to the
+    renders and the z-buffer holding the closest point; (f) `cli.train`
+    with dataset=droid, 3 bf16 steps of `configs/mvtracker.yaml`, K1, K2,
+    K3 a step;
+16. a JSON line for the kernels, then the result line.
 
 Needs CUDA; exits non-zero without it. Imports nothing of JAX.
 """
@@ -1733,10 +1754,10 @@ def phase_options(torch, smi, knn_ops, corr_ops, release):
     t0 = time.perf_counter()
     with LogRecords() as logs:
         summary = cli_eval.main(["--config", config, "--device", "cuda", f"trainer.exp_dir={exp}",
-                                 "eval.max_sequences=2"])
+                                 "eval.max_sequences=1"])
     eval_s = time.perf_counter() - t0
     paths["config_cli_eval"] = {k: made()[k] for k in ("knn", "corr")}
-    calls = 3  # the Evaluator runs the first scene of a shape once untimed
+    calls = 2  # the Evaluator runs the first scene of a shape once untimed
     eval_iters = load_config(config).eval.n_iters
     want = {"knn": calls * (1 + 3 * 3), "corr": calls * 3 * eval_iters * 4}
     if "evaluating checkpoint at step 3" not in logs.messages or paths["config_cli_eval"] != want:
@@ -1944,7 +1965,7 @@ def write_dexycb_scene(scene, path) -> None:
 # so a weight may differ by 1.5e-5 and a value on 0..255 by up to 3.9e-3
 # (an H100 reads 3.4e-3): held to 5e-3.
 NATIVE_ATOL = {"gaussian_blur": 2e-3, "bilinear_resize_ac": 5e-3, "photometric_jitter": 2e-3}
-AUG_SCENES, AUG_STEPS, AUG_WORKERS = 6, 6, 4
+AUG_SCENES, AUG_STEPS, AUG_WORKERS = 5, 5, 4  # 5 steps hold the profiler window, steps 2 to 4
 PROFILE_START, PROFILE_STEPS = 2, 3
 # (c) Crash replay, the loss of the dumped batch through the kernels (fp32,
 # TF32 off, exact kNN) against the plain CPU path, relative gap. CPU
@@ -3171,7 +3192,7 @@ PAR_RING_QUERIES = 2048  # (a): M * k = 32768 > 16384 / D points a shard: the ri
 PAR_MESH_QUERIES = (256, 1024)  # (b): level 0 by the gather-merge, then by the ring
 PAR_STEP_SCENE = (4, 18, 128, 128, 64)  # (c) fp32 parity batch: views, frames, H, W, tracks a scene
 PAR_STEPS, PAR_BF16_STEPS, PAR_TOTAL_STEPS = 2, 3, 100
-PAR_CHILD_TIMEOUT = 300
+PAR_CHILD_TIMEOUT = 600  # the 4-rank parts, then the 2-rank parts, in one spawn
 PAR_DEVICE = "cuda"  # phase 14's device (a rehearsal on the CPU sets "cpu")
 # (c) the sharded fp32 step against one process (TF32 off, remat), 2 steps.
 # Limits from `scripts/control_torch_parallel.py`, the same comparison at
@@ -3470,24 +3491,66 @@ def par_bundle(torch, rank, world, spec):
     return {"extrs": e.cpu().numpy(), "points": p.cpu().numpy()}
 
 
-def par_child(rank, world, plan, device):
+SPILLED = ("params", "mu", "mu_last", "nu_last")  # a step part's per-leaf arrays, hundreds of MB on rank 0
+
+
+def spill(out: dict, spill_dir: str, rank: int) -> None:
+    """Move the per-leaf arrays of `out`'s step parts to .npy files in
+    `spill_dir`: through the result queue they are pickled into a pipe the
+    parent drains while it competes for the host (30 s alone, 108 s beside
+    phase 13's render thread)."""
+    for part, got in out.items():
+        if isinstance(got, dict) and "params" in got:
+            got["spilled"] = {}
+            for moment in SPILLED:
+                path = os.path.join(spill_dir, f"{part}_rank{rank}_{moment}.npz")
+                np.savez(path, **got.pop(moment))
+                got["spilled"][moment] = path
+
+
+def unspill(got: dict) -> dict:
+    """`spill`'s arrays back into a step part's result."""
+    for moment, path in got.pop("spilled", {}).items():
+        with np.load(path) as leaves:
+            got[moment] = dict(leaves)
+    return got
+
+
+def par_child(rank, world, plan, device, spill_dir=None):
     """A phase-14 process: the parts of `plan`, in order, on `device` (the
-    card; the CPU for `scripts/control_torch_parallel.py`)."""
+    card; the CPU for `scripts/control_torch_parallel.py`). A part
+    ("regroup", {"world": n, "init": url}) leaves the world; ranks below n
+    join a new world of n (through the rendezvous `url`) for the parts that
+    follow, the others return. With `spill_dir` the step parts' arrays come
+    back as files there (`spill`)."""
     import torch
+    import torch.distributed as dist
 
     global PAR_DEVICE
     PAR_DEVICE = device
     if PAR_DEVICE == "cuda":
         torch.cuda.set_device(0)
         check_built()
-    fns = {"knn": par_knn, "knn_mesh": par_knn_mesh, "step": par_step, "step4": par_step, "bundle": par_bundle,
-           "probe": par_probe}
+    fns = {"knn": par_knn, "knn4": par_knn, "knn_mesh": par_knn_mesh, "step": par_step, "step4": par_step,
+           "bundle": par_bundle, "probe": par_probe}
     out = {"entered": time.time()}
     for part, spec in plan:
+        if part == "regroup":
+            out["left_" + str(world)] = time.time()
+            dist.destroy_process_group()
+            if rank >= spec["world"]:
+                break
+            world = spec["world"]
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+            dist.init_process_group("gloo", init_method=spec["init"], rank=rank, world_size=world)
+            out["regrouped"] = time.time()
+            continue
         t0 = time.perf_counter()
         out[part] = fns[part](torch, rank, world, spec)
         out[part + "_s"] = time.perf_counter() - t0
     out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20 if PAR_DEVICE == "cuda" else 0.0
+    if spill_dir is not None:
+        spill(out, spill_dir, rank)
     out["left"] = time.time()
     return out
 
@@ -3581,7 +3644,9 @@ def phase_parallel(torch, smi, knn_ops, corr_ops):
     tmp = tempfile.TemporaryDirectory()
     groups = "backend gloo, collectives through host memory"
 
-    # References in this process, on the card.
+    # The children's inputs, then the children (one spawn of 4 ranks, which
+    # regroup to 2 for the 2-rank parts) in a thread beside this process's
+    # parts: the references, (d), (e) and the NCCL probe.
     t0 = time.perf_counter()
     flag = make_scene(np.random.default_rng(0), V, T, H, W, PAR_RING_QUERIES)
     cloud = level0_cloud(torch, flag, WINDOW, dev)  # [12, 16384, 3]
@@ -3596,6 +3661,37 @@ def phase_parallel(torch, smi, knn_ops, corr_ops):
         "flagship_ring": (cloud, queries, k, "ring"),
         "large_gather": (large_cloud, large_q, k, "gather"),
     }
+    problem = ba_problem(np.random.default_rng(0))
+    step_scene = PAR_STEP_SCENE
+
+    def numpy_cases(names):
+        return {n: (knn_cases[n][0].cpu().numpy(), knn_cases[n][1].cpu().numpy(), knn_cases[n][2], knn_cases[n][3])
+                for n in names}
+
+    step_spec = dict(device=PAR_DEVICE, width={}, scene=step_scene, bf16_steps=PAR_BF16_STEPS)
+    regroup = "file://" + str(Path(tmp.name) / "rendezvous_regroup")
+    plan = [("knn4", numpy_cases(["flagship_gather", "flagship_ring"])),
+            ("step4", dict(step_spec, n_model=2, shard_views=True, shard_tracks=True)),
+            ("regroup", {"world": 2, "init": regroup}),
+            ("knn", numpy_cases(["flagship_gather", "flagship_ring", "large_gather"])),
+            ("knn_mesh", {"queries": PAR_MESH_QUERIES}),
+            ("step", dict(step_spec, n_model=1, shard_views=False, shard_tracks=False)),
+            ("bundle", {"problem": problem, "iterations": 10}),
+            ("probe", {"scene": step_scene})]
+    children = {}
+
+    def run_children():
+        children["start"] = time.time()
+        try:
+            children["ranks"] = run_local(par_child, 4, tmp.name, plan, PAR_DEVICE, tmp.name,
+                                          timeout=PAR_CHILD_TIMEOUT, threads=max(1, (os.cpu_count() or 1) // 4))
+        except BaseException as e:  # raised in this process once the thread is joined
+            children["error"] = e
+        children["done"] = time.time()
+
+    torch.cuda.synchronize()
+    thread = threading.Thread(target=run_children, name="phase14-ranks", daemon=True)
+    thread.start()
     want = {}
     for name, (ref, q, kk, _) in knn_cases.items():
         want[name] = {"global": knn_ops.knn(ref, q, kk), "exact": knn_ops.knn_exact_cuda(ref, q, kk)}
@@ -3605,7 +3701,6 @@ def phase_parallel(torch, smi, knn_ops, corr_ops):
         res = mesh_model(*to_device(scene, dev), iters=ITERS)
         mesh_want.append({key: res[key].float().cpu().numpy() for key in ("traj", "vis")})
     del mesh_model
-    step_scene = PAR_STEP_SCENE
     step_batch = {k: torch.as_tensor(v, device=dev) for k, v in par_step_batch(*step_scene).items()}
     step_want = par_run_steps(torch, par_step_model(torch, PAR_DEVICE, {}), step_batch, PAR_STEPS)
     # The same steps again in this process: the noise floor of the
@@ -3613,131 +3708,9 @@ def phase_parallel(torch, smi, knn_ops, corr_ops):
     step_again = step_gaps(par_run_steps(torch, par_step_model(torch, PAR_DEVICE, {}), step_batch, PAR_STEPS),
                            step_want)
     del step_batch
-    problem = ba_problem(np.random.default_rng(0))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    log(f"parallel: references in one process {time.perf_counter() - t0:.1f} s [{smi}]")
-
-    def numpy_cases(names):
-        return {n: (knn_cases[n][0].cpu().numpy(), knn_cases[n][1].cpu().numpy(), knn_cases[n][2], knn_cases[n][3])
-                for n in names}
-
-    step_spec = dict(device=PAR_DEVICE, width={}, scene=step_scene, bf16_steps=PAR_BF16_STEPS)
-    plans = {
-        2: [("knn", numpy_cases(["flagship_gather", "flagship_ring", "large_gather"])),
-            ("knn_mesh", {"queries": PAR_MESH_QUERIES}),
-            ("step", dict(step_spec, n_model=1, shard_views=False, shard_tracks=False)),
-            ("bundle", {"problem": problem, "iterations": 10}),
-            ("probe", {"scene": step_scene})],
-        4: [("knn", numpy_cases(["flagship_gather", "flagship_ring"])),
-            ("step4", dict(step_spec, n_model=2, shard_views=True, shard_tracks=True))],
-    }
-    results = {}
-    for world, plan in plans.items():
-        t0, start = time.perf_counter(), time.time()
-        results[world] = run_local(par_child, world, tmp.name, plan, PAR_DEVICE, timeout=PAR_CHILD_TIMEOUT,
-                                   threads=max(1, (os.cpu_count() or 1) // world))
-        done = time.time()
-        log(f"parallel: {world} ranks on one card ({groups}) in {time.perf_counter() - t0:.1f} s, of it per rank "
-            f"{[{p: round(r[p + '_s'], 1) for p, _ in plan} for r in results[world]]} s, from the start to each "
-            f"rank's first part {[round(r['entered'] - start, 1) for r in results[world]]} s and from its return to "
-            f"the last exit {[round(done - r['left'], 1) for r in results[world]]} s; peak memory per rank "
-            f"{[round(r['peak_mib'], 1) for r in results[world]]} MiB [{smi}]")
-
-    # (a) The schedules against the global search and the exact kNN.
-    k1 = {}
-    for world, ranks in results.items():
-        for name, (ref, q, kk, schedule) in knn_cases.items():
-            if name not in ranks[0]["knn"]:
-                continue
-            gd, gi = (a.cpu().numpy() for a in want[name]["global"])
-            ed, ei = (a.cpu().numpy() for a in want[name]["exact"])
-            ties = int((np.diff(ed, axis=-1) == 0).sum())
-            for rank, r in enumerate(ranks):
-                got = r["knn"][name]
-                if not (np.array_equal(got["d"], gd) and np.array_equal(got["d"], ed)):
-                    raise AssertionError(f"parallel (a) {name} on {world} ranks, rank {rank}: distances differ "
-                                         f"from the global search ({float(np.abs(got['d'] - gd).max()):.3e})")
-                if not np.array_equal(got["i"], ei):
-                    raise AssertionError(f"parallel (a) {name} on {world} ranks, rank {rank}: "
-                                         f"{int((got['i'] != ei).sum())} indices differ from the exact kNN's")
-                if not np.array_equal(got["d"], ranks[0]["knn"][name]["d"]):
-                    raise AssertionError(f"parallel (a) {name}: the ranks disagree")
-                k1[(world, name, rank)] = got["launches"]
-            off = int((gi != ei).sum())
-            per_rank = [r["knn"][name]["launches"] for r in ranks]
-            global_kernel = "K4" if ref.shape[1] > knn_ops.FUSED_MAX_POINTS else "K1"
-            log(f"parallel (a) {name}: cloud [{ref.shape[0]}, {ref.shape[1]}, 3] over {world} ranks "
-                f"({ref.shape[1] // world} points a shard), {q.shape[1]} queries, k={kk}, {schedule}: distances "
-                f"bit-equal to the global {global_kernel} search and the exact kNN, indices equal to the exact kNN's; "
-                f"{ties} tied neighbour pairs, {off} indices of the global {global_kernel} search ordered otherwise; "
-                f"launches per rank {per_rank}; ms per rank {[round(r['knn'][name]['ms'], 2) for r in ranks]} "
-                f"[{smi}]")
-            if any(set(c) != {"knn"} or c["knn"] != (1 if schedule == "gather" else world) for c in per_rank):
-                raise AssertionError(f"parallel (a) {name}: launches per rank {per_rank}")
-    paths["parallel_knn"] = {"knn": sum(c["knn"] for c in k1.values())}
-
-    # (b) The knn_mesh tracker against the same requests in one process.
-    counts = {"knn": 0, "corr": 0}
-    for qi, n in enumerate(PAR_MESH_QUERIES):
-        rows = []
-        for rank, r in enumerate(results[2]):
-            got = r["knn_mesh"][qi]
-            for key, (tmax, tmed) in (("traj", (E2E_TRAJ_MAX, E2E_TRAJ_MEDIAN)),
-                                      ("vis", (E2E_VIS_MAX, E2E_VIS_MEDIAN))):
-                gap = np.abs(got[key] - mesh_want[qi][key])
-                rows.append(f"rank {rank} {key} max {gap.max():.3e} median {np.median(gap):.3e}")
-                if not (gap.max() <= tmax and np.median(gap) <= tmed):
-                    raise AssertionError(f"parallel (b) {n} queries, rank {rank}: {key} gap {gap.max():.3e} / "
-                                         f"{np.median(gap):.3e} beyond phase 4's limits {tmax} / {tmed}")
-            for key in counts:
-                counts[key] += got["launches"].get(key, 0)
-        per_rank = [r["knn_mesh"][qi]["launches"] for r in results[2]]
-        log(f"parallel (b) flagship bf16 knn_mesh 1 x 2, request of {n} queries: schedules per rank "
-            f"{[r['knn_mesh'][qi]['schedules'] for r in results[2]]}, launches per rank {per_rank}, ms per rank "
-            f"{[round(r['knn_mesh'][qi]['ms'], 2) for r in results[2]]}; against one process (limits phase 4's, "
-            f"traj {E2E_TRAJ_MAX} / {E2E_TRAJ_MEDIAN}, vis {E2E_VIS_MAX} / {E2E_VIS_MEDIAN}): {'; '.join(rows)} "
-            f"[{smi}]")
-        schedule = "gather" if n * 16 <= LEVEL_POINTS[0] // 2 else "ring"
-        if any(not r["knn_mesh"][qi]["schedules"][schedule] for r in results[2]):
-            raise AssertionError(f"parallel (b) {n} queries: level 0 did not take the {schedule} schedule")
-    paths["parallel_knn_mesh"] = counts
-
-    # (c) The sharded train step against one process.
-    counts = {"knn": 0, "corr": 0, "corr_bwd": 0}
-    for world, part in ((2, "step"), (4, "step4")):
-        ranks = [r[part] for r in results[world]]
-        if len({r["digest"] for r in ranks}) != 1:
-            raise AssertionError(f"parallel (c) {part}: the ranks' parameters differ {[r['digest'] for r in ranks]}")
-        gaps = step_gaps(ranks[0], step_want)
-        label = "2 x 1" if world == 2 else "2 x 2 shard_views shard_tracks"
-        log(f"parallel (c) flagship fp32 train step, TF32 off, remat, {label}, {PAR_STEPS} steps of a 2-scene batch "
-            f"({step_scene[0]} views x {step_scene[1]} frames x {step_scene[2]}x{step_scene[3]}, {step_scene[4]} "
-            f"tracks) against one process: loss {[round(m['loss'], 6) for m in ranks[0]['metrics']]} vs "
-            f"{[round(m['loss'], 6) for m in step_want['metrics']]}; gaps {gaps}, limits {PAR_STEP_LIMITS}; "
-            f"launches per rank {[r['parity_launches'] for r in ranks]} [{smi}]")
-        if world == 2:
-            log(f"parallel (c) one process against itself, the same fp32 steps: gaps {step_again}; ops without a "
-                f"deterministic implementation in one such step (each rank of the 2-rank round, in its own "
-                f"process): {[r['probe'] for r in results[2]]} [{smi}]")
-        bad = {key: v for key, v in gaps.items() if not v <= PAR_STEP_LIMITS[key]}
-        if bad:
-            raise AssertionError(f"parallel (c) {label}: gaps {bad} beyond {PAR_STEP_LIMITS}")
-        bf16 = [r["bf16"] for r in ranks]
-        log(f"parallel (c) flagship bf16 (remat) {label}, {PAR_BF16_STEPS} steps of 2 scenes of {V} views x {T} "
-            f"frames x {H}x{W}, {N_QUERIES} tracks ({world} processes sharing one card, no data-parallel speed-up): "
-            f"ms per step per rank {[[round(x, 1) for x in b['ms']] for b in bf16]}, peak memory per rank "
-            f"{[round(b['peak_mib'], 1) for b in bf16]} MiB, losses {bf16[0]['loss']}, launches per rank "
-            f"{[b['launches'] for b in bf16]} [{smi}]")
-        want_steps = {"knn": K1_PER_FWD * PAR_BF16_STEPS, "corr": K2_PER_FWD * PAR_BF16_STEPS,
-                      "corr_bwd": K3_PER_STEP * PAR_BF16_STEPS}
-        if any(b["launches"] != want_steps for b in bf16) or not all(np.isfinite(b["loss"]).all() for b in bf16):
-            raise AssertionError(f"parallel (c) {label} bf16: launches {[b['launches'] for b in bf16]}, want "
-                                 f"{want_steps}; losses {[b['loss'] for b in bf16]}")
-        for b in bf16:
-            for key in counts:
-                counts[key] += b["launches"][key]
-    paths["parallel_train"] = counts
+    log(f"parallel: references in one process {time.perf_counter() - t0:.1f} s, beside the ranks [{smi}]")
 
     # (d) cli.train with MVTRACKER_DISTRIBUTED=1: a world of 1 over NCCL, the
     # environment as a launcher sets it; then eval_checkpoint --exp_dir.
@@ -3864,17 +3837,11 @@ def phase_parallel(torch, smi, knn_ops, corr_ops):
     only_gap = float(np.abs(cams[PAR_DEVICE][0] - cams["cpu"][0]).max())
     joint_gap = float(np.abs(pixels(torch, intrs_b, *cams[PAR_DEVICE][1:3])
                              - pixels(torch, intrs_b, *cams["cpu"][1:3])).max())
-    ranks = [r["bundle"] for r in results[2]]
-    sharded_points = np.concatenate([r["points"] for r in ranks])
-    sharded_gap = float(np.abs(pixels(torch, intrs_b, ranks[0]["extrs"], sharded_points)
-                               - pixels(torch, intrs_b, *cams[PAR_DEVICE][1:3])).max())
     log(f"parallel (e) bundle adjustment, {extrs_b.shape[0]} cameras, {points_b.shape[0]} points: card vs CPU "
         f"cameras only {only_gap:.3e} (limit {BA_ATOL}), joint reprojection {joint_gap:.3e} px (limit "
-        f"{BA_PIXEL_ATOL}); refine_cameras_sharded over 2 ranks vs refine_cameras on the card {sharded_gap:.3e} px; "
-        f"residuals {cams[PAR_DEVICE][3]:.3e} / {cams[PAR_DEVICE][4]:.3e} [{smi}]")
-    if not (only_gap <= BA_ATOL and joint_gap <= BA_PIXEL_ATOL and sharded_gap <= BA_PIXEL_ATOL
-            and np.array_equal(ranks[0]["extrs"], ranks[1]["extrs"])):
-        raise AssertionError("parallel (e): bundle adjustment differs")
+        f"{BA_PIXEL_ATOL}); residuals {cams[PAR_DEVICE][3]:.3e} / {cams[PAR_DEVICE][4]:.3e} [{smi}]")
+    if not (only_gap <= BA_ATOL and joint_gap <= BA_PIXEL_ATOL):
+        raise AssertionError("parallel (e): bundle adjustment differs between the card and the CPU")
 
     # NCCL with two ranks on one device: once, to write down what it says.
     t0 = time.perf_counter()
@@ -3884,7 +3851,460 @@ def phase_parallel(torch, smi, knn_ops, corr_ops):
         lines = [line for line in str(e).splitlines() if line.strip()]
         outcome = "failed: " + " | ".join(lines[-3:])[:600]
     log(f"parallel: NCCL, 2 ranks on one device ({time.perf_counter() - t0:.1f} s): {outcome}")
+
+    # The ranks' results.
+    t0 = time.perf_counter()
+    thread.join()
+    if "error" in children:
+        raise children["error"]
+    ranks_all = children["ranks"]
+    for r in ranks_all:
+        for part in ("step", "step4"):
+            if part in r:
+                unspill(r[part])
+    results = {4: [{"knn": r["knn4"], "step4": r["step4"]} for r in ranks_all], 2: ranks_all[:2]}
+    start, done = children["start"], children["done"]
+    log(f"parallel: 4 ranks on one card ({groups}) then ranks 0 and 1 regrouped into a world of 2, in "
+        f"{done - start:.1f} s ({time.perf_counter() - t0:.1f} s waited for after this process's parts); per rank "
+        f"{[{p: round(r[p + '_s'], 1) for p, _ in plan if p + '_s' in r} for r in ranks_all]} s; from the start to "
+        f"each rank's first part {[round(r['entered'] - start, 1) for r in ranks_all]} s, the regroup "
+        f"{[round(r['regrouped'] - r['left_4'], 1) for r in ranks_all[:2]]} s, from each rank's return to the last "
+        f"exit {[round(done - r['left'], 1) for r in ranks_all]} s; peak memory per rank "
+        f"{[round(r['peak_mib'], 1) for r in ranks_all]} MiB [{smi}]")
+
+    # (a) The schedules against the global search and the exact kNN.
+    k1 = {}
+    for world, ranks in results.items():
+        for name, (ref, q, kk, schedule) in knn_cases.items():
+            if name not in ranks[0]["knn"]:
+                continue
+            gd, gi = (a.cpu().numpy() for a in want[name]["global"])
+            ed, ei = (a.cpu().numpy() for a in want[name]["exact"])
+            ties = int((np.diff(ed, axis=-1) == 0).sum())
+            for rank, r in enumerate(ranks):
+                got = r["knn"][name]
+                if not (np.array_equal(got["d"], gd) and np.array_equal(got["d"], ed)):
+                    raise AssertionError(f"parallel (a) {name} on {world} ranks, rank {rank}: distances differ "
+                                         f"from the global search ({float(np.abs(got['d'] - gd).max()):.3e})")
+                if not np.array_equal(got["i"], ei):
+                    raise AssertionError(f"parallel (a) {name} on {world} ranks, rank {rank}: "
+                                         f"{int((got['i'] != ei).sum())} indices differ from the exact kNN's")
+                if not np.array_equal(got["d"], ranks[0]["knn"][name]["d"]):
+                    raise AssertionError(f"parallel (a) {name}: the ranks disagree")
+                k1[(world, name, rank)] = got["launches"]
+            off = int((gi != ei).sum())
+            per_rank = [r["knn"][name]["launches"] for r in ranks]
+            global_kernel = "K4" if ref.shape[1] > knn_ops.FUSED_MAX_POINTS else "K1"
+            log(f"parallel (a) {name}: cloud [{ref.shape[0]}, {ref.shape[1]}, 3] over {world} ranks "
+                f"({ref.shape[1] // world} points a shard), {q.shape[1]} queries, k={kk}, {schedule}: distances "
+                f"bit-equal to the global {global_kernel} search and the exact kNN, indices equal to the exact kNN's; "
+                f"{ties} tied neighbour pairs, {off} indices of the global {global_kernel} search ordered otherwise; "
+                f"launches per rank {per_rank}; ms per rank {[round(r['knn'][name]['ms'], 2) for r in ranks]} "
+                f"[{smi}]")
+            if any(set(c) != {"knn"} or c["knn"] != (1 if schedule == "gather" else world) for c in per_rank):
+                raise AssertionError(f"parallel (a) {name}: launches per rank {per_rank}")
+    paths["parallel_knn"] = {"knn": sum(c["knn"] for c in k1.values())}
+
+    # (b) The knn_mesh tracker against the same requests in one process.
+    counts = {"knn": 0, "corr": 0}
+    for qi, n in enumerate(PAR_MESH_QUERIES):
+        rows = []
+        for rank, r in enumerate(results[2]):
+            got = r["knn_mesh"][qi]
+            for key, (tmax, tmed) in (("traj", (E2E_TRAJ_MAX, E2E_TRAJ_MEDIAN)),
+                                      ("vis", (E2E_VIS_MAX, E2E_VIS_MEDIAN))):
+                gap = np.abs(got[key] - mesh_want[qi][key])
+                rows.append(f"rank {rank} {key} max {gap.max():.3e} median {np.median(gap):.3e}")
+                if not (gap.max() <= tmax and np.median(gap) <= tmed):
+                    raise AssertionError(f"parallel (b) {n} queries, rank {rank}: {key} gap {gap.max():.3e} / "
+                                         f"{np.median(gap):.3e} beyond phase 4's limits {tmax} / {tmed}")
+            for key in counts:
+                counts[key] += got["launches"].get(key, 0)
+        per_rank = [r["knn_mesh"][qi]["launches"] for r in results[2]]
+        log(f"parallel (b) flagship bf16 knn_mesh 1 x 2, request of {n} queries: schedules per rank "
+            f"{[r['knn_mesh'][qi]['schedules'] for r in results[2]]}, launches per rank {per_rank}, ms per rank "
+            f"{[round(r['knn_mesh'][qi]['ms'], 2) for r in results[2]]}; against one process (limits phase 4's, "
+            f"traj {E2E_TRAJ_MAX} / {E2E_TRAJ_MEDIAN}, vis {E2E_VIS_MAX} / {E2E_VIS_MEDIAN}): {'; '.join(rows)} "
+            f"[{smi}]")
+        schedule = "gather" if n * 16 <= LEVEL_POINTS[0] // 2 else "ring"
+        if any(not r["knn_mesh"][qi]["schedules"][schedule] for r in results[2]):
+            raise AssertionError(f"parallel (b) {n} queries: level 0 did not take the {schedule} schedule")
+    paths["parallel_knn_mesh"] = counts
+
+    # (c) The sharded train step against one process.
+    counts = {"knn": 0, "corr": 0, "corr_bwd": 0}
+    for world, part in ((2, "step"), (4, "step4")):
+        ranks = [r[part] for r in results[world]]
+        if len({r["digest"] for r in ranks}) != 1:
+            raise AssertionError(f"parallel (c) {part}: the ranks' parameters differ {[r['digest'] for r in ranks]}")
+        gaps = step_gaps(ranks[0], step_want)
+        label = "2 x 1" if world == 2 else "2 x 2 shard_views shard_tracks"
+        log(f"parallel (c) flagship fp32 train step, TF32 off, remat, {label}, {PAR_STEPS} steps of a 2-scene batch "
+            f"({step_scene[0]} views x {step_scene[1]} frames x {step_scene[2]}x{step_scene[3]}, {step_scene[4]} "
+            f"tracks) against one process: loss {[round(m['loss'], 6) for m in ranks[0]['metrics']]} vs "
+            f"{[round(m['loss'], 6) for m in step_want['metrics']]}; gaps {gaps}, limits {PAR_STEP_LIMITS}; "
+            f"launches per rank {[r['parity_launches'] for r in ranks]} [{smi}]")
+        if world == 2:
+            log(f"parallel (c) one process against itself, the same fp32 steps: gaps {step_again}; ops without a "
+                f"deterministic implementation in one such step (each rank of the 2-rank round, in its own "
+                f"process): {[r['probe'] for r in results[2]]} [{smi}]")
+        bad = {key: v for key, v in gaps.items() if not v <= PAR_STEP_LIMITS[key]}
+        if bad:
+            raise AssertionError(f"parallel (c) {label}: gaps {bad} beyond {PAR_STEP_LIMITS}")
+        bf16 = [r["bf16"] for r in ranks]
+        log(f"parallel (c) flagship bf16 (remat) {label}, {PAR_BF16_STEPS} steps of 2 scenes of {V} views x {T} "
+            f"frames x {H}x{W}, {N_QUERIES} tracks ({world} processes sharing one card, no data-parallel speed-up): "
+            f"ms per step per rank {[[round(x, 1) for x in b['ms']] for b in bf16]}, peak memory per rank "
+            f"{[round(b['peak_mib'], 1) for b in bf16]} MiB, losses {bf16[0]['loss']}, launches per rank "
+            f"{[b['launches'] for b in bf16]} [{smi}]")
+        want_steps = {"knn": K1_PER_FWD * PAR_BF16_STEPS, "corr": K2_PER_FWD * PAR_BF16_STEPS,
+                      "corr_bwd": K3_PER_STEP * PAR_BF16_STEPS}
+        if any(b["launches"] != want_steps for b in bf16) or not all(np.isfinite(b["loss"]).all() for b in bf16):
+            raise AssertionError(f"parallel (c) {label} bf16: launches {[b['launches'] for b in bf16]}, want "
+                                 f"{want_steps}; losses {[b['loss'] for b in bf16]}")
+        for b in bf16:
+            for key in counts:
+                counts[key] += b["launches"][key]
+    paths["parallel_train"] = counts
+
+    ranks = [r["bundle"] for r in results[2]]
+    sharded_points = np.concatenate([r["points"] for r in ranks])
+    sharded_gap = float(np.abs(pixels(torch, intrs_b, ranks[0]["extrs"], sharded_points)
+                               - pixels(torch, intrs_b, *cams[PAR_DEVICE][1:3])).max())
+    log(f"parallel (e) bundle adjustment: refine_cameras_sharded over 2 ranks vs refine_cameras on the card "
+        f"{sharded_gap:.3e} px (limit {BA_PIXEL_ATOL}) [{smi}]")
+    if not (sharded_gap <= BA_PIXEL_ATOL and np.array_equal(ranks[0]["extrs"], ranks[1]["extrs"])):
+        raise AssertionError("parallel (e): the sharded bundle adjustment differs")
     tmp.cleanup()
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the DROID data factory
+# ---------------------------------------------------------------------------
+
+# The synthetic episode every part of the phase runs on: 2 external cameras
+# and the wrist camera at 256x192, 40 frames (three boundary-chained segments
+# of `track --chunk_frames 16`), 24 contact points a finger. It is built in a
+# process of its own from the top of the script (numpy ray tracing on the
+# host, about a minute of one core), beside the card phases.
+DROID_EPISODE = dict(seed=0, n_frames=40, n_external_cams=2, width=256, height=192, num_track_points=24)
+DROID_DEVICE = "cuda"  # phase 15's device (a rehearsal on the CPU sets "cpu")
+DROID_CHUNK = 16
+DROID_QUERIES = 256  # depth queries of the mask-guided request
+DROID_TIMED = 3  # warm gripper requests timed
+DROID_PLAIN_FRAMES = 24  # the fp32 card-vs-CPU request: two chained segments
+DROID_REPROJECT_FRAMES = 8
+DROID_TRAIN_FRAMES, DROID_TRAIN_STEPS = 24, 3
+DROID_Z_TRUE = 0.03  # the wrist bias injected for `refine` (3 cm, as tests/test_droid_refine.py)
+DROID_Z_ATOL = 1e-3  # the JAX package's recovery criterion
+# Card against CPU: the refined offset, and the fp32 track request (TF32
+# off, exact kNN on both). Limits from `scripts/control_torch_droid.py`, the
+# plain CPU path against itself with its inputs moved by up to 1e-6 (run on
+# the card host's CPU), and the card's first reading: 3 times the larger, as
+# phase 13's. The control's offset does not move (0.0; the card's gap read
+# 0.0 too): the limit is the search's own tolerance, 1e-5 m. Track control
+# traj median / p90 / max 4.88e-7 / 9.24e-7 / 4.89e-5, vis 6.56e-7 /
+# 2.74e-6 / 0.601 (one visibility flips under the move, so the vis max
+# holds nothing); the card read traj 0.0 / 7.45e-9 / 2.12e-6, vis 4.17e-7 /
+# 7.15e-7 / 7.69e-5.
+DROID_REFINE_CPU_ATOL = 1e-5
+DROID_PLAIN_LIMITS = {"traj": {"median": 1.5e-6, "p90": 2.8e-6, "max": 1.5e-4},
+                      "vis": {"median": 2.0e-6, "p90": 8.2e-6, "max": 1.0}}
+# The codecs at DROID's own size: a ZED HD720 depth stream and a
+# trajectory.h5 of 300 steps.
+CODEC_FRAMES, CODEC_H, CODEC_W = 60, 720, 1280
+H5_STEPS = 300
+
+
+def build_droid_episode(root: str, spec: dict) -> None:
+    """Phase 15 (b)'s episode, in its own process: raw h5 -> FK pipeline ->
+    rendered rgb.npz and depth.mkv under `root/processed`."""
+    from mvtracker_torch.droid.synth_episode import build_episode
+
+    t0 = time.perf_counter()
+    build_episode(root, **spec)
+    with open(os.path.join(root, "build_seconds"), "w") as f:
+        f.write(f"{time.perf_counter() - t0:.1f}")
+
+
+def start_droid_episode():
+    """Start building phase 15's episode in a spawned process; returns
+    (process, temporary directory, its start time)."""
+    import multiprocessing
+
+    tmp = tempfile.TemporaryDirectory()
+    proc = multiprocessing.get_context("spawn").Process(
+        target=build_droid_episode, args=(tmp.name, DROID_EPISODE), daemon=True)
+    proc.start()
+    return proc, tmp, time.perf_counter()
+
+
+def codec_depth(rng, t, h, w):
+    """Depth frames [t, h, w] in meters as a ZED stream gives them: a slanted
+    table with noise, a hole (no depth) and a far band near 65 m."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = 0.4 + 0.9 * yy / h + 0.2 * np.sin(xx / 53.0)
+    d = base[None] + rng.normal(0, 0.002, (t, h, w)).astype(np.float32)
+    d[:, h // 3:h // 2, w // 5:w // 3] = 0.0
+    d[:, :h // 10] = rng.uniform(63.0, 65.5, (t, h // 10, w)).astype(np.float32)
+    return d
+
+
+def phase_droid(torch, smi, job):
+    """Phase 15: (a) the port's FFV1 and HDF5 codecs at DROID's size, (b) the
+    synthetic episode and its loader, (c) `cli.droid refine`, (d) `cli.droid
+    track`, (e) `cli.droid reproject`, (f) `cli.train` with dataset=droid.
+    Returns {path: launch totals}."""
+    import shutil
+
+    from mvtracker_torch.cli import droid as droid_cli
+    from mvtracker_torch.cli import train as cli_train
+    from mvtracker_torch.datasets import droid as droid_data
+    from mvtracker_torch.datasets import hdf5
+    from mvtracker_torch.device import fp32_precision
+    from mvtracker_torch.droid import depth_video, reproject
+    from mvtracker_torch.droid.refine import refine_episode_wrist_z
+    from mvtracker_torch.evaluation.evaluator import to_host
+
+    paths = {}
+    proc, episode_tmp, started = job
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    rng = np.random.default_rng(0)
+
+    # (a) FFV1 at 1280x720: encode, decode, bit-equal millimetres.
+    depth = codec_depth(rng, CODEC_FRAMES, CODEC_H, CODEC_W)
+    mm = np.stack([depth_video.encode_depth_frame(f) for f in depth])
+    mkv = str(root / "zed_hd720_depth.mkv")
+    t0 = time.perf_counter()
+    depth_video.write_depth_video(mkv, depth)
+    enc_ms = (time.perf_counter() - t0) * 1e3 / CODEC_FRAMES
+    t0 = time.perf_counter()
+    back = depth_video.read_bgr_frames(mkv)
+    dec_ms = (time.perf_counter() - t0) * 1e3 / CODEC_FRAMES
+    equal = len(back) == CODEC_FRAMES and all(np.array_equal(a[..., :2], b[..., :2]) for a, b in zip(back, mm))
+    size = os.path.getsize(mkv)
+    log(f"droid (a) FFV1 depth video, {CODEC_FRAMES} frames of {CODEC_W}x{CODEC_H} (holes, far band near 65 m): "
+        f"encode {enc_ms:.2f} ms a frame, decode {dec_ms:.2f} ms a frame (host, {os.cpu_count()} cores), "
+        f"{size / 2**20:.1f} MiB ({size / (CODEC_FRAMES * CODEC_H * CODEC_W * 2):.3f} of the raw uint16), "
+        f"millimetres bit-equal {equal} [{smi}]")
+    if not equal:
+        raise AssertionError("droid (a): the FFV1 round trip is not bit-equal")
+    del depth, mm, back
+    # HDF5: a DROID-shaped trajectory.h5, contiguous and chunked.
+    h5_data = {"observation/robot_state/cartesian_position": rng.normal(size=(H5_STEPS, 6)),
+               "observation/robot_state/gripper_position": rng.uniform(size=(H5_STEPS, 1))}
+    for layout, kw in (("contiguous", {}), ("chunked, resizable, deflate",
+                                            dict(chunks={k: (64,) + v.shape[1:] for k, v in h5_data.items()},
+                                                 deflate=4))):
+        path = str(root / "trajectory.h5")
+        t0 = time.perf_counter()
+        hdf5.write(path, h5_data, **kw)
+        got = hdf5.read_all(path)
+        ms = (time.perf_counter() - t0) * 1e3
+        same = sorted(got) == sorted(h5_data) and all(
+            got[k].dtype == v.dtype and np.array_equal(got[k], v) for k, v in h5_data.items())
+        log(f"droid (a) HDF5 trajectory.h5 ({layout}): cartesian [{H5_STEPS}, 6] and gripper [{H5_STEPS}, 1] "
+            f"float64 written and read back in {ms:.1f} ms, equal {same}")
+        if not same:
+            raise AssertionError(f"droid (a): the {layout} HDF5 round trip differs")
+
+    # (b) The episode, built beside the earlier phases.
+    t0 = time.perf_counter()
+    proc.join(timeout=900)
+    waited = time.perf_counter() - t0
+    if proc.exitcode != 0:
+        raise AssertionError(f"droid (b): the episode build ended with exit code {proc.exitcode}")
+    build_s = float((Path(episode_tmp.name) / "build_seconds").read_text())
+    ep = str(Path(episode_tmp.name) / "processed" / f"episode_{DROID_EPISODE['seed']:03d}")
+    t0 = time.perf_counter()
+    dp = droid_data.load_droid_episode(ep)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    cams = droid_data.episode_camera_ids(ep)
+    tracks = np.load(os.path.join(ep, "tracks.npz"))
+    extr = np.load(os.path.join(ep, "extrinsics.npz"))
+    meta = json.loads(Path(ep, "metadata.json").read_text())
+    for vi, cid in enumerate(cams):
+        rec = Path(ep, "recordings", cid)
+        pose = extr["wrist"] if cid == meta["wrist_cam_serial"] else np.broadcast_to(
+            extr[f"external_{cid}"], (dp.video.shape[1], 4, 4))
+        same = (np.array_equal(dp.video[vi], np.load(rec / "rgb.npz")["rgb"].astype(np.float32))
+                and np.array_equal(dp.videodepth[vi], depth_video.read_depth_video(str(rec / "depth.mkv")))
+                and np.array_equal(dp.extrs[vi], np.linalg.inv(pose.astype(np.float64))[:, :3].astype(np.float32))
+                and np.array_equal(dp.intrs[vi, 0], np.asarray(meta["camera_intrinsics"][cid]["K"], np.float32)))
+        if not same:
+            raise AssertionError(f"droid (b): load_droid_episode's camera {cid} differs from its files")
+    if not np.array_equal(dp.trajectory_3d, tracks["tracks_3d"].astype(np.float32)):
+        raise AssertionError("droid (b): load_droid_episode's tracks differ from tracks.npz")
+    v, t, h, w = dp.videodepth.shape
+    log(f"droid (b) synthetic episode ({v} cameras {cams} x {t} frames x {w}x{h}, {dp.trajectory_3d.shape[1]} "
+        f"FK contact tracks; raw trajectory.h5 through the port's HDF5 writer and reader, depth.mkv through its FFV1 "
+        f"writer): built in {build_s:.1f} s in its own process beside phases 2 to 14, waited {waited:.1f} s for it; "
+        f"load_droid_episode {load_ms:.1f} ms, equal to the files it reads [{smi}]")
+    del dp
+
+    # (c) cli.droid refine on a copy with the wrist biased by DROID_Z_TRUE.
+    biased = str(root / "biased")
+    shutil.copytree(ep, biased)
+    data = dict(np.load(os.path.join(biased, "extrinsics.npz")))
+    data["wrist"] = data["wrist"].copy()
+    data["wrist"][:, :3, 3] -= DROID_Z_TRUE * data["wrist"][:, :3, 2]
+    np.savez_compressed(os.path.join(biased, "extrinsics.npz"), **data)
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        droid_cli.main(["refine", "--episode", biased, "--device", DROID_DEVICE])
+    refine_s = time.perf_counter() - t0
+    paths["droid_refine"] = {"knn": read_counts().get("knn", 0)}
+    card = json.loads(out.getvalue().strip().splitlines()[-1])
+    t0 = time.perf_counter()
+    cpu = refine_episode_wrist_z(biased, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    z_err = abs(card["wrist_z_offset_m"] - DROID_Z_TRUE)
+    z_gap = abs(card["wrist_z_offset_m"] - cpu["wrist_z_offset_m"])
+    log(f"droid (c) cli.droid refine, wrist biased {DROID_Z_TRUE} m: card {card['wrist_z_offset_m']:.6f} m "
+        f"(fitness {card['fitness']:.4f}, {card['frames_used']} frames, {refine_s:.1f} s, launches "
+        f"{paths['droid_refine']}), {z_err * 1e3:.3f} mm from the bias (limit {DROID_Z_ATOL * 1e3:.0f} mm); CPU "
+        f"{cpu['wrist_z_offset_m']:.6f} m ({cpu_s:.1f} s), gap {z_gap:.3e} (limit {DROID_REFINE_CPU_ATOL}) [{smi}]")
+    if not (card["status"] == "ok" and z_err < DROID_Z_ATOL and z_gap <= DROID_REFINE_CPU_ATOL
+            and paths["droid_refine"]["knn"] > 0):
+        raise AssertionError("droid (c): the wrist offset was not recovered, or card and CPU differ")
+
+    # (d) cli.droid track: the flagship bf16 with seeded weights.
+    mask = np.zeros((h, w), np.float32)
+    mask[:, : 3 * w // 4] = 1.0
+    masked = str(root / "masked")
+    shutil.copytree(ep, masked)
+    np.savez_compressed(os.path.join(masked, "masks.npz"), **{f"cam{c}": mask for c in cams})
+    track_counts = {}
+    for name, episode, extra in (("gripper", ep, []),
+                                 ("depth", masked, ["--queries", "depth", "--num_queries", str(DROID_QUERIES)])):
+        reset_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = droid_cli.main(["track", "--episode", episode, "--out", str(root / f"{name}.npz"), "--chunk_frames",
+                              str(DROID_CHUNK), "--overlay", str(root / f"{name}_overlay.mp4"), "--device",
+                              DROID_DEVICE, *extra])
+        first_s = time.perf_counter() - t0
+        track_counts[name] = {k: read_counts().get(k, 0) for k in ("knn", "corr")}
+        traj, vis = to_host(res["traj"]), to_host(res["vis"])
+        written = sorted(p.name for p in root.iterdir() if p.name.startswith(f"{name}_overlay"))
+        log(f"droid (d) cli.droid track --queries {name} (bf16, seeded weights, 6 iterations, grid 5, "
+            f"--chunk_frames {DROID_CHUNK}): traj {tuple(traj.shape)}, finite {bool(np.isfinite(traj).all())}, "
+            f"launches {track_counts[name]}, first request with the model's build {first_s:.1f} s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; overlay written as {written} [{smi}]")
+        if not (traj.shape[0] == t and np.isfinite(traj).all() and np.isfinite(vis).all()
+                and all(track_counts[name].values()) and written):
+            raise AssertionError(f"droid (d) {name}: outputs, launches or overlay missing")
+    paths["droid_track"] = {k: sum(c[k] for c in track_counts.values()) for k in ("knn", "corr")}
+    args = droid_cli.build_parser().parse_args(
+        ["track", "--episode", ep, "--out", str(root / "timed.npz"), "--chunk_frames", str(DROID_CHUNK), "--device",
+         DROID_DEVICE])
+    dp, queries, pred = droid_cli.prepare_track(args)
+    request = (dp.video, dp.videodepth, queries, dp.intrs, dp.extrs)
+    with torch.no_grad():
+        pred(*request)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(DROID_TIMED):
+            t0 = time.perf_counter()
+            to_host(pred(*request)["traj"])
+            times.append((time.perf_counter() - t0) * 1e3)
+    log(f"droid (d) track, warm gripper requests ({len(queries)} queries, {v} x {t} frames of {w}x{h}, 3 segments): "
+        f"{[round(x, 2) for x in times]} ms [{smi}]")
+    del pred, dp
+    # One fp32 request (TF32 off, exact kNN) on the card against the plain CPU path.
+    outs = {}
+    for device in (DROID_DEVICE, "cpu"):
+        args = droid_cli.build_parser().parse_args(
+            ["track", "--episode", ep, "--out", str(root / "plain.npz"), "--chunk_frames", str(DROID_CHUNK),
+             "--max_frames", str(DROID_PLAIN_FRAMES), "--dtype", "float32", "--device", device])
+        dp, queries, pred = droid_cli.prepare_track(args)
+        pred.model.knn_backend = "exact"
+        t0 = time.perf_counter()
+        with torch.no_grad(), fp32_precision(True):
+            res = pred(dp.video, dp.videodepth, queries, dp.intrs, dp.extrs)
+        outs[device] = (to_host(res["traj"]), to_host(res["vis"]))
+        if device == "cpu":
+            cpu_s = time.perf_counter() - t0
+        del pred
+    check_gaps({"droid": outs[DROID_DEVICE]}, {"droid": outs["cpu"]}, DROID_PLAIN_LIMITS,
+               f"droid (d) track fp32 (TF32 off, exact kNN), {DROID_PLAIN_FRAMES} frames, card vs plain CPU "
+               f"({cpu_s:.1f} s on the CPU) [{smi}]")
+    torch.cuda.empty_cache()
+
+    # (e) cli.droid reproject: depth videos through the FFV1 writer.
+    out_dir = str(root / "reprojected")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        droid_cli.main(["reproject", "--episode", ep, "--out", out_dir, "--max_frames", str(DROID_REPROJECT_FRAMES),
+                        "--overlay_tracks"])
+    rp_s = time.perf_counter() - t0
+    dp = droid_data.load_droid_episode(ep, max_frames=DROID_REPROJECT_FRAMES)
+    clamps = reproject._camera_clamps(cams, meta["wrist_cam_serial"])
+    direct_hits = 0
+    for ti in range(DROID_REPROJECT_FRAMES):
+        pts, cols = reproject.fuse_frame_cloud(dp.video[:, ti], dp.videodepth[:, ti], dp.intrs[:, ti],
+                                               dp.extrs[:, ti], clamps, stride=2)
+        for vi, cid in enumerate(cams):
+            _, dep = reproject.render_pointcloud_to_view(pts, cols, dp.intrs[vi, ti], dp.extrs[vi, ti], h, w,
+                                                         min_depth=clamps[vi][0], splat_size=3)
+            got = depth_video.read_depth_video(os.path.join(out_dir, f"{cid}_depth_reprojected.mkv"))[ti]
+            if not np.array_equal(got, depth_video.decode_depth_frame(depth_video.encode_depth_frame(dep))):
+                raise AssertionError(f"droid (e): camera {cid} frame {ti}: the depth video is not the render")
+            if ti == 0:
+                # The z-buffer: every pixel a point lands on holds the closest.
+                cam_pts = pts @ dp.extrs[vi, 0, :, :3].T + dp.extrs[vi, 0, :, 3]
+                z = cam_pts[:, 2]
+                keep = z > clamps[vi][0]
+                k = dp.intrs[vi, 0]
+                u = np.round(cam_pts[keep, 0] * k[0, 0] / z[keep] + k[0, 2]).astype(np.int64)
+                vv = np.round(cam_pts[keep, 1] * k[1, 1] / z[keep] + k[1, 2]).astype(np.int64)
+                inside = (u >= 0) & (u < w) & (vv >= 0) & (vv < h)
+                closest = np.full(h * w, np.inf, np.float32)
+                np.minimum.at(closest, vv[inside] * w + u[inside], z[keep][inside].astype(np.float32))
+                hit = np.isfinite(closest)
+                direct_hits += int(hit.sum())
+                if not np.array_equal(dep.reshape(-1)[hit], closest[hit]):
+                    raise AssertionError(f"droid (e): camera {cid}: the z-buffer does not keep the closest point")
+    files = sorted(os.listdir(out_dir))
+    log(f"droid (e) cli.droid reproject --max_frames {DROID_REPROJECT_FRAMES} --overlay_tracks: {rp_s:.1f} s; "
+        f"{len(cams)} depth videos read back bit-equal to the renders' millimetres, the z-buffer holding the closest "
+        f"point at all {direct_hits} directly hit pixels of frame 0; files {files} [{smi}]")
+    del dp
+
+    # (f) cli.train with dataset=droid: 3 bf16 steps of configs/mvtracker.yaml.
+    windows = windows_of(np.zeros((1, 4)), DROID_TRAIN_FRAMES, WINDOW, WINDOW // 2)
+    argv = ["--config", str(ROOT / "configs" / "mvtracker.yaml"), "--device", DROID_DEVICE, "data.dataset=droid",
+            f"data.root={os.path.dirname(ep)}", f"data.n_frames={DROID_TRAIN_FRAMES}", "data.num_workers=1",
+            "model.compute_dtype=bfloat16", f"trainer.total_steps={DROID_TRAIN_STEPS}",
+            f"trainer.exp_dir={root / 'train'}", "trainer.telemetry_freq=1", "trainer.save_ckpt_freq=1000"]
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    with LogRecords() as logs:
+        state = cli_train.main(argv)
+    train_s = time.perf_counter() - t0
+    paths["droid_train"] = {k: read_counts().get(k, 0) for k in ("knn", "corr", "corr_bwd")}
+    # adaptive_iters with 100 warm-up steps: one iteration a step.
+    want = {"knn": DROID_TRAIN_STEPS * (1 + 3 * windows), "corr": DROID_TRAIN_STEPS * 4 * windows,
+            "corr_bwd": DROID_TRAIN_STEPS * 4 * windows}
+    losses = [m.split(" loss=")[1].split()[0] for m in logs.messages if " loss=" in m]
+    telemetry = [m.split(" | ")[-1] for m in logs.messages if "mean/med/std" in m]
+    log(f"droid (f) cli.train configs/mvtracker.yaml data.dataset=droid data.n_frames={DROID_TRAIN_FRAMES} bf16: "
+        f"{state.step} steps in {train_s:.1f} s, losses {losses}, launches {paths['droid_train']} ({windows} windows "
+        f"a step: K1 {1 + 3 * windows}, K2 {4 * windows}, K3 {4 * windows} a step); telemetry {telemetry} [{smi}]")
+    if state.step != DROID_TRAIN_STEPS or paths["droid_train"] != want or len(losses) != DROID_TRAIN_STEPS or not all(
+            np.isfinite(float(x)) for x in losses):
+        raise AssertionError(f"droid (f): steps {state.step}, launches {paths['droid_train']} (want {want}), "
+                             f"losses {losses}")
+    del state
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    episode_tmp.cleanup()
     return paths
 
 
@@ -3895,7 +4315,7 @@ def main() -> int:
     parser.add_argument("--release", default=None,
                         help="release checkpoint (flax msgpack) for phases 9 and 10, held against the golden outputs")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases to run (of 2 to 14; 8 runs with 7) for a quicker check of one "
+                        help="comma-separated phases to run (of 2 to 15; 8 runs with 7) for a quicker check of one "
                              "part; such a run prints no kernels line and no result line")
     cli = parser.parse_args()
     only = None if cli.phases is None else {int(x) for x in cli.phases.split(",")}
@@ -3909,6 +4329,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from mvtracker_torch.convert import random_state_dict
+    from mvtracker_torch.droid import ffv1
     from mvtracker_torch.models.mvtracker import MVTracker
     from mvtracker_torch.ops import _cuda
     from mvtracker_torch.ops import corr as corr_ops
@@ -3925,25 +4346,48 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.build_all()
     log(f"built kernels {list(_cuda.SOURCES)} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ffv1.load()  # host code (g++): phase 15's depth-video codec
+    log(f"built the FFV1 codec {ffv1.native.library_path(ffv1.SOURCE).relative_to(ROOT)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    droid_job = start_droid_episode() if wanted(15) else None
+    script_t0 = time.perf_counter()
+
+    def took(phase, t_start, what):
+        log(f"phase {phase} ({what}) took {time.perf_counter() - t_start:.1f} s [{smi}]")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     if wanted(2):
+        t0 = time.perf_counter()
         stats = phase_kernels(torch, knn_ops, corr_ops, gen)
         phase_kernels_evaluation(torch, knn_ops, corr_ops, gen, stats)
         phase_kernels_options(torch, knn_ops, corr_ops, gen, stats)
+        took(2, t0, "kernels against their plain versions")
     if wanted(3):
+        t0 = time.perf_counter()
         serving = phase_main_path(torch, MVTracker, random_state_dict, make_scene, knn_ops, corr_ops)
+        took(3, t0, "serving")
     if wanted(4):
+        t0 = time.perf_counter()
         phase_end_to_end(torch, MVTracker, random_state_dict, make_scene, knn_ops)
+        took(4, t0, "fp32 forward against the plain CPU path")
     if wanted(5):
+        t0 = time.perf_counter()
         training = phase_train_path(torch, smi, MVTracker, random_state_dict, make_scene, knn_ops, corr_ops)
+        took(5, t0, "training")
     if wanted(6):
+        t0 = time.perf_counter()
         phase_train_end_to_end(torch, MVTracker, random_state_dict, make_scene, corr_ops)
+        took(6, t0, "fp32 train step against the plain CPU path")
     if wanted(7) or wanted(8):
+        t0 = time.perf_counter()
         large, cloud = phase_large_cloud(torch, smi, MVTracker, random_state_dict, make_scene, knn_ops, corr_ops)
         direct = phase_direct_knn(torch, smi, knn_ops, cloud)
+        took("7 and 8", t0, "large cloud, direct kNN")
     if wanted(9):
+        t0 = time.perf_counter()
         evaluation = phase_evaluation(torch, smi, knn_ops, corr_ops, cli.release)
+        took(9, t0, "evaluation")
     if wanted(10):
         t0 = time.perf_counter()
         options = phase_options(torch, smi, knn_ops, corr_ops, cli.release)
@@ -3983,8 +4427,13 @@ def main() -> int:
             idle = [key for key, count in counts.items() if count == 0]
             if idle:
                 raise AssertionError(f"the {path} path launched no {idle} kernel")
+    if wanted(15):
+        t0 = time.perf_counter()
+        droid = phase_droid(torch, smi, droid_job)
+        took(15, t0, "the DROID factory: codecs, episode, refine, track, reproject, cli.train")
     if wanted(13):
-        check_render()  # phase 13's render against its CPU reference, computed beside phase 14
+        check_render()  # phase 13's render against its CPU reference, computed beside phases 14 and 15
+    log(f"phases 2 to 15 took {time.perf_counter() - script_t0:.1f} s [{smi}]")
     if only is not None:
         log(f"partial run of phases {sorted(only)} passed; no kernels line and no result line")
         return 0
@@ -3992,7 +4441,7 @@ def main() -> int:
     # Each path was driven with the counts at 0 just before it; every kernel
     # of a path must have been launched in that path's run.
     paths = {"serving": serving, "training": training, "large_cloud": large, "direct_knn": direct,
-             "evaluation": evaluation, **options, **data_path, **last, **parallel}
+             "evaluation": evaluation, **options, **data_path, **last, **parallel, **droid}
     for path, counts in paths.items():
         idle = [key for key, count in counts.items() if count == 0]
         if idle:
@@ -4037,7 +4486,8 @@ def main() -> int:
         "5 requests, no kNN or correlation stage, 0 and checked) and of phase 14, summed over the ranks "
         "(parallel_knn: the schedules' timed calls; parallel_knn_mesh: 2 requests on 2 ranks; parallel_train: the "
         "bf16 steps on 2 and 4 ranks; parallel_cli_train: 3 steps in a world of 1; parallel_icp: one ICP call and "
-        "one z-offset search)")
+        "one z-offset search) and of phase 15 (droid_refine: one cli.droid refine; droid_track: the gripper and "
+        "the mask-guided depth requests of cli.droid track; droid_train: 3 cli.train steps on the episode)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

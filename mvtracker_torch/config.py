@@ -15,9 +15,9 @@ What the port does with the settings:
   modules, with no scan to unroll. `corr_backend` picks among the JAX package's correlation
   implementations; the port has one (the CUDA kernel on the card, its plain
   version on the CPU), so only "auto" is accepted.
-- `build_dataset` builds `synthetic`, `kubric` and the `-multiview` names
-  (Kubric, Panoptic Studio, DexYCB); `droid` raises `NotImplementedError`
-  (ROADMAP A.6: it needs `droid/depth_video.py` and `droid/transforms.py`).
+- `build_dataset` builds `synthetic`, `kubric`, `droid` (the processed
+  episodes under `root`, `datasets/droid.py`) and the `-multiview` names
+  (Kubric, Panoptic Studio, DexYCB).
 - `mesh_data`, `mesh_model` and `shard_views` shape the training mesh
   (`parallel/mesh.py`) when `cli.train` runs in a world of more than one
   process (`MVTRACKER_DISTRIBUTED=1`); `cli.eval` reads none of them and
@@ -283,10 +283,9 @@ def build_dataset(dc: DataConfig):
 
         return KubricMultiViewDataset(dc.root, view_subset=dc.view_subset, num_tracks=dc.num_tracks, seed=dc.seed)
     if dc.dataset == "droid":
-        raise NotImplementedError(
-            "dataset 'droid' is not ported yet: ROADMAP A.6 (datasets/droid.py with droid/depth_video.py and "
-            "droid/transforms.py)"
-        )
+        from mvtracker_torch.datasets.droid import DroidEpisodeDataset
+
+        return DroidEpisodeDataset(dc.root, max_frames=dc.n_frames or None)
     if "-multiview" in dc.dataset:
         # The dataset-name grammar of the reference's `from_name` factories,
         # e.g. "kubric-multiview-v3-views0_1_2_3-noise2cm", "panoptic-multiview".

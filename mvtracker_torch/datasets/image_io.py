@@ -11,6 +11,8 @@ Read (`read_image` for a file, `decode_image` for bytes, by the magic bytes):
   Deflate, either byte order. Returned as float32 [H, W].
 - JPEG only through `imageio` when it imports; otherwise `ImportError`
   naming the file. There is no substitute decoder.
+- Videos (`read_video`, `write_video`, `write_gif`) only through `imageio`
+  in the same way.
 
 Any other variant (interlaced or palette PNG, LZW or tiled TIFF, a
 predictor, another sample type) raises `ValueError` naming the file and
@@ -34,6 +36,33 @@ _PNG_FORMATS = {(0, 8): 1, (2, 8): 3, (6, 8): 4, (0, 16): 1}
 _PNG_COLOR_NAMES = {0: "gray", 2: "RGB", 3: "palette", 4: "gray+alpha", 6: "RGBA"}
 
 
+def _imageio(path, what: str):
+    """The imageio package; `ImportError` naming `path` where it is absent."""
+    try:
+        import imageio
+    except ImportError as e:
+        raise ImportError(f"{path}: {what} needs imageio, which is not installed here") from e
+    return imageio
+
+
+def read_video(path) -> np.ndarray:
+    """The frames [T, H, W, C] of a video file (mp4 and the like), through
+    imageio and its ffmpeg plugin; `ImportError` naming the file without
+    imageio."""
+    return np.asarray(_imageio(path, "video").v3.imread(path))
+
+
+def write_video(path, frames: np.ndarray, fps: float) -> None:
+    """[T, H, W, 3] uint8 frames to a video file through imageio (an mp4
+    needs its ffmpeg plugin); raises where imageio or the plugin is absent."""
+    _imageio(path, "video").v3.imwrite(path, frames, fps=fps)
+
+
+def write_gif(path, frames: np.ndarray, fps: float) -> None:
+    """[T, H, W, 3] uint8 frames to an animated GIF through imageio."""
+    _imageio(path, "GIF").v2.mimsave(path, list(frames), fps=fps)
+
+
 def read_image(path) -> np.ndarray:
     """The image in `path` (PNG, float TIFF, or JPEG through imageio)."""
     path = Path(path)
@@ -49,11 +78,7 @@ def decode_image(data: bytes, path="<bytes>") -> np.ndarray:
     if data[:4] in (b"II*\x00", b"MM\x00*"):
         return _read_tiff(data, path)
     if data[:2] == b"\xff\xd8":
-        try:
-            import imageio.v3 as iio
-        except ImportError as e:
-            raise ImportError(f"{path}: JPEG needs imageio, which is not installed here") from e
-        return np.asarray(iio.imread(bytes(data)))
+        return np.asarray(_imageio(path, "JPEG").v3.imread(bytes(data)))
     raise ValueError(f"{path}: not a PNG, TIFF or JPEG file (starts with {data[:8]!r})")
 
 

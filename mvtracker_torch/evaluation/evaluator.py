@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import time
 import warnings
 from typing import Iterable, Optional
@@ -76,12 +77,15 @@ class Evaluator:
         viz_indices: Optional[list[int]] = None,
         query_mode: str = "first",
     ):
-        if viz_dir is not None:
-            raise NotImplementedError("viz_dir: the video overlays (viz/) are not ported yet")
         self.setting = evaluation_setting
         self.thresholds = EVALUATION_SETTINGS[evaluation_setting]
         self.compute_2d_metrics = compute_2d_metrics
         self.pixel_thresholds = list(pixel_thresholds)
+        # Track overlays (`viz/mp4.py`) of the sequences `viz_indices` (all
+        # when None) are written to `viz_dir` as <seq_name>.mp4, or the GIF
+        # or .npz that `save_video` falls back to.
+        self.viz_dir = viz_dir
+        self.viz_indices = viz_indices
         # TAP-Vid query protocol: "first" masks pre-query ground truth;
         # "strided" evaluates mid-video queries bidirectionally.
         self.query_mode = query_mode
@@ -193,6 +197,14 @@ class Evaluator:
             )
             if self.compute_2d_metrics and datapoint.trajectory is not None:
                 results.update(self._metrics_2d(datapoint, traj, occluded))
+            if self.viz_dir is not None and (self.viz_indices is None or i in self.viz_indices):
+                from mvtracker_torch.viz.mp4 import render_multiview_mosaic, save_video
+
+                os.makedirs(self.viz_dir, exist_ok=True)
+                frames = render_multiview_mosaic(
+                    datapoint.video.astype(np.uint8), traj, datapoint.intrs, datapoint.extrs, visibility=~occluded
+                )
+                save_video(frames, os.path.join(self.viz_dir, f"{datapoint.seq_name}.mp4"))
             results["fps"] = fps
             results["seq_name"] = datapoint.seq_name
             per_seq.append(results)

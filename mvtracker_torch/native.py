@@ -37,18 +37,28 @@ _lib = None
 _tried = False
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libdatapath_{digest}.so"
+def library_path(source: Path = SOURCE) -> Path:
+    """Where the library built from `source` with `CXX_FLAGS` lives."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 
-def _build(so: Path) -> None:
+def _build(so: Path, source: Path = SOURCE) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    out = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True, text=True)
+    out = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(source)], capture_output=True, text=True)
     if out.returncode != 0:
-        raise RuntimeError(f"g++ failed for {SOURCE.name}:\n{out.stderr}")
+        raise RuntimeError(f"g++ failed for {source.name}:\n{out.stderr}")
     os.replace(tmp, so)
+
+
+def build_library(source: Path) -> Path:
+    """Build `source` with g++ into `_build/` unless it is built already;
+    return the library's path. Raises `RuntimeError` when g++ fails."""
+    so = library_path(source)
+    if not so.exists():
+        _build(so, source)
+    return so
 
 
 def _load():
@@ -58,10 +68,7 @@ def _load():
             return _lib
         _tried = True
         try:
-            so = library_path()
-            if not so.exists():
-                _build(so)
-            lib = ctypes.CDLL(str(so))
+            lib = ctypes.CDLL(str(build_library(SOURCE)))
             i64 = ctypes.c_int64
             fp = ctypes.POINTER(ctypes.c_float)
             u8p = ctypes.POINTER(ctypes.c_uint8)

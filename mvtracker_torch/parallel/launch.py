@@ -6,8 +6,9 @@ ranks sharing one card.
 the spawn start method. Each joins a gloo world through a file rendezvous in
 `rendezvous_dir` (no TCP port to clash with another run), sets `threads`
 intra-op threads when given, and returns `fn(rank, world, *args)` to the
-caller, which gets the results by rank. `fn` and its arguments and results
-are pickled: `fn` is a module-level function. A process that raises, dies or
+caller, which gets the results by rank. `fn` may leave the world, and join
+another, before it returns. `fn` and its arguments and results are pickled:
+`fn` is a module-level function. A process that raises, dies or
 gives no result within `timeout` seconds fails the call with its traceback,
 and every process has ended when the call returns.
 """
@@ -33,7 +34,8 @@ def _child(fn, rank, world, init, results, args, threads):
         try:
             results.put((rank, None, fn(rank, world, *args)))
         finally:
-            dist.destroy_process_group()
+            if dist.is_initialized():  # `fn` may have left its world (or joined another)
+                dist.destroy_process_group()
     except BaseException:
         results.put((rank, traceback.format_exc(), None))
 

@@ -1,7 +1,7 @@
 """The port's config system and its config-driven CLIs against the JAX
 package's (`mvtracker_tpu/config.py`, `cli/{train,eval,serve}.py`) on the
 CPU: every shipped model preset loads to the same settings and builds a
-port model, overrides parse alike, the DROID dataset raises, the real datasets build, every trainer setting runs, `Trainer.fit`'s
+port model, overrides parse alike, the DROID and the real datasets build, every trainer setting runs, `Trainer.fit`'s
 evaluation hook and static-pretrain iterator, `python -m mvtracker_torch.cli.train` then `cli.eval` on one
 experiment directory, and the server's answers against the predictor."""
 
@@ -123,19 +123,20 @@ def test_config_model_options():
 
 @pytest.mark.parametrize("dataset", ["kubric", "droid", "panoptic-multiview"])
 def test_unported_datasets_raise(tmp_path, dataset):
-    """`droid` still raises, naming ROADMAP A.6; `kubric` and the
-    `-multiview` names build on a fixture and give the JAX package's
-    `build_dataset`'s scenes."""
-    if dataset == "droid":
-        with pytest.raises(NotImplementedError, match="A.6"):
-            t_config.build_dataset(t_config.DataConfig(dataset=dataset))
-        return
-    scene = j_synth.render_scene(seed=3, n_views=2, n_frames=3, height=32, width=40, n_tracks=10)
-    if dataset == "kubric":
-        write_kubric_scene(scene, str(tmp_path / "scene_000"))
-    else:
-        write_panoptic_scene(scene, str(tmp_path / "panoptic-multiview" / "seq0"))
+    """Every dataset name builds (`droid` too, since its slice was ported)
+    on a fixture and gives the JAX package's `build_dataset`'s scenes."""
     dc = dict(dataset=dataset, root=str(tmp_path), num_tracks=6)
+    if dataset == "droid":
+        from mvtracker_tpu.droid.synth_episode import build_episode
+
+        build_episode(str(tmp_path), seed=1, n_frames=5, width=64, height=48, num_track_points=3)
+        dc.update(root=str(tmp_path / "processed"), n_frames=4)
+    else:
+        scene = j_synth.render_scene(seed=3, n_views=2, n_frames=3, height=32, width=40, n_tracks=10)
+        if dataset == "kubric":
+            write_kubric_scene(scene, str(tmp_path / "scene_000"))
+        else:
+            write_panoptic_scene(scene, str(tmp_path / "panoptic-multiview" / "seq0"))
     got, want = t_config.build_dataset(t_config.DataConfig(**dc)), j_config.build_dataset(j_config.DataConfig(**dc))
     assert type(got).__name__ == type(want).__name__ and len(got) == len(want) == 1
     assert_same_datapoint(got[0], want[0])

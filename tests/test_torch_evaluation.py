@@ -162,9 +162,15 @@ def test_evaluator_times_after_an_untimed_first_call(scenes):
     assert all(r["fps"] > 0 for r in per_seq) and summary["n_sequences"] == 2
 
 
-def test_evaluator_and_copycat_refuse_and_keep_devices(scenes):
-    with pytest.raises(NotImplementedError, match="viz"):
-        t_eval.Evaluator(viz_dir="out")
+def test_evaluator_and_copycat_refuse_and_keep_devices(scenes, tmp_path):
+    """`viz_dir` writes the JAX evaluator's overlays (the sequences of
+    `viz_indices`), and CopyCat keeps its outputs on the input's device."""
+    for name, ev in (("t", t_eval), ("j", j_eval)):
+        evaluator = ev.Evaluator(viz_dir=str(tmp_path / name), viz_indices=[1])
+        evaluator.evaluate_sequence(t_copycat.CopyCat() if name == "t" else j_copycat.CopyCat(), scenes[0])
+    written = sorted(p.name for p in (tmp_path / "t").iterdir())
+    assert written == sorted(p.name for p in (tmp_path / "j").iterdir()) and len(written) == 1
+    assert (tmp_path / "t" / written[0]).read_bytes() == (tmp_path / "j" / written[0]).read_bytes()
     dp = scenes[0][0]
     out = t_copycat.CopyCatPredictor()(dp.video, dp.videodepth, torch.from_numpy(dp.query_points_3d), dp.intrs, dp.extrs)
     assert out["traj"].device.type == "cpu" and out["vis"].dtype == torch.float32

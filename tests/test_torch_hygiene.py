@@ -4,6 +4,7 @@ plain path on a host without nvcc or a GPU."""
 
 import ast
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -11,12 +12,14 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-# msgpack, sklearn, OpenCV, Pillow and tifffile are absent on the GPU host: a
-# port module importing one would fail only there. imageio too; it may be
-# imported only where `IMAGEIO_ALLOWED` says (`test_imageio_only_behind_image_io`).
+# msgpack, sklearn, OpenCV, Pillow, tifffile and h5py are absent on the GPU
+# host: a port module importing one would fail only there. imageio too; it may
+# be imported only where `IMAGEIO_ALLOWED` says (`test_imageio_only_behind_image_io`),
+# and huggingface_hub only where `HUB_ALLOWED` says.
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mvtracker_tpu", "msgpack", "sklearn", "cv2", "PIL",
-             "tifffile")
+             "tifffile", "h5py")
 IMAGEIO_ALLOWED = ROOT / "mvtracker_torch" / "datasets" / "image_io.py"
+HUB_ALLOWED = ROOT / "mvtracker_torch" / "droid" / "hub.py"
 
 
 def _port_files():
@@ -39,20 +42,42 @@ def test_port_imports_nothing_of_jax(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
-def test_imageio_only_behind_image_io():
-    """imageio is imported by `datasets/image_io.py` alone (for JPEG), inside
-    a `try` whose `except ImportError` handler raises naming the file."""
-    users = [p for p in _port_files() if any(m.split(".")[0] == "imageio" for m in _imported_modules(p))]
-    assert users == [IMAGEIO_ALLOWED]
-    tree = ast.parse(IMAGEIO_ALLOWED.read_text())
+def _guarded_imports(path, package):
+    """(imports of `package` inside a `try` whose `except ImportError`
+    handlers all raise, all imports of `package`) in `path`."""
+    tree = ast.parse(path.read_text())
+
+    def imports_it(n):
+        return (isinstance(n, ast.Import) and n.names[0].name.split(".")[0] == package) or (
+            isinstance(n, ast.ImportFrom) and (n.module or "").split(".")[0] == package)
+
     guarded = [
         node for node in ast.walk(tree) if isinstance(node, ast.Try)
-        and any(isinstance(n, ast.Import) and n.names[0].name.startswith("imageio") for n in node.body)
+        and any(imports_it(n) for n in node.body)
         and any(isinstance(h.type, ast.Name) and h.type.id == "ImportError" for h in node.handlers)
         and all(any(isinstance(n, ast.Raise) for n in ast.walk(h)) for h in node.handlers)
     ]
-    imports = [n for n in ast.walk(tree) if isinstance(n, ast.Import) and n.names[0].name.startswith("imageio")]
+    return guarded, [n for n in ast.walk(tree) if imports_it(n)]
+
+
+def _only_behind(package, allowed):
+    users = [p for p in _port_files() if any(m.split(".")[0] == package for m in _imported_modules(p))]
+    assert users == [allowed]
+    guarded, imports = _guarded_imports(allowed, package)
     assert len(guarded) == len(imports) == 1
+
+
+def test_imageio_only_behind_image_io():
+    """imageio is imported by `datasets/image_io.py` alone (for JPEG and
+    videos), inside a `try` whose `except ImportError` handler raises
+    naming the file."""
+    _only_behind("imageio", IMAGEIO_ALLOWED)
+
+
+def test_huggingface_hub_only_behind_droid_hub():
+    """huggingface_hub is imported by `droid/hub.py` alone (`HfStore`), inside
+    a `try` whose `except ImportError` handler raises naming the client."""
+    _only_behind("huggingface_hub", HUB_ALLOWED)
 
 
 def test_kernel_modules_import_without_nvcc(tmp_path):
@@ -77,3 +102,33 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
     assert out.returncode == 0, out.stderr
     if not Path("/usr/local/cuda/bin/nvcc").exists():
         assert "no nvcc" in out.stdout
+
+
+def test_ffv1_codec_builds_with_gxx_alone(tmp_path):
+    """The depth-video codec (`csrc/ffv1.cpp`) is host code: with no nvcc on
+    PATH and no CUDA it builds with g++ into a fresh build directory and
+    round-trips a frame."""
+    gxx = shutil.which("g++")
+    assert gxx, "g++ is needed to build the port's host libraries"
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    for tool in ("g++", "as", "ld"):  # the compiler and the binutils it runs
+        (bindir / tool).symlink_to(shutil.which(tool))
+    code = (
+        "import numpy as np\n"
+        "from pathlib import Path\n"
+        "from mvtracker_torch import native\n"
+        f"native.BUILD_DIR = Path({str(tmp_path / 'build')!r})\n"
+        "from mvtracker_torch.droid import ffv1\n"
+        "enc = ffv1.Encoder(40, 24)\n"
+        "bgr = np.random.default_rng(0).integers(0, 255, (24, 40, 3), dtype=np.uint8)\n"
+        "out = ffv1.Decoder(enc.record(), 40, 24).decode(enc.encode(bgr))\n"
+        "assert (out == bgr).all()\n"
+        "print(sorted(p.name for p in native.BUILD_DIR.iterdir()))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env["PATH"] = str(bindir)  # g++ and its binutils, no nvcc
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "libffv1_" in out.stdout and "nvcc" not in out.stderr
