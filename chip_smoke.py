@@ -158,7 +158,26 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     renders and the z-buffer holding the closest point; (f) `cli.train`
     with dataset=droid, 3 bf16 steps of `configs/mvtracker.yaml`, K1, K2,
     K3 a step;
-16. a JSON line for the kernels, then the result line.
+16. this slice's entry points: (a) `python -m mvtracker_torch.cli.convert`
+    (a process of its own) on the seeded flagship's state dict saved under
+    "model", then `convert.load_release` of its output strictly into a fresh
+    flagship, every leaf bit-equal; `scripts/export_params_msgpack_torch.py
+    --dtype bfloat16` on a one-step checkpoint of the medium release model,
+    every leaf the step's weight rounded to bf16; (b) `cli.demo` on phase 3's
+    scene (seed 0) written as a sample NPZ, the flagship's seeded weights
+    from `--ckpt_dir`, `--chunk_frames 16 --mp4`: one K1 launch per kNN
+    search and one K2 per correlation, and traj_e / vis_e bit-equal to the
+    predictor called directly in this process; (c) the DROID north star,
+    `scripts/eval_droid_track_error_torch.py` at the JAX script's settings
+    on one episode (2 external cameras and the wrist at 256x192, 48 frames,
+    built in a process of its own from the top of the script), seeded
+    medium weights written through the port's msgpack encoder (or the
+    `--release` file) and loaded strictly: the two medians and the fps, K1
+    and K2 a search, and the model's predictor on the card against the
+    plain CPU path on the first 16 frames (TF32 off, exact kNN); (d)
+    `scripts/train_droid_ft_torch.py`, 3 steps from (c)'s weights on that
+    episode with one evaluation, K1, K2 and K3 counted;
+17. a JSON line for the kernels, then the result line.
 
 Needs CUDA; exits non-zero without it. Imports nothing of JAX.
 """
@@ -4028,14 +4047,14 @@ def build_droid_episode(root: str, spec: dict) -> None:
         f.write(f"{time.perf_counter() - t0:.1f}")
 
 
-def start_droid_episode():
-    """Start building phase 15's episode in a spawned process; returns
-    (process, temporary directory, its start time)."""
+def start_droid_episode(spec=None):
+    """Start building phase 15's episode (or the one `spec` names) in a
+    spawned process; returns (process, temporary directory, its start time)."""
     import multiprocessing
 
     tmp = tempfile.TemporaryDirectory()
     proc = multiprocessing.get_context("spawn").Process(
-        target=build_droid_episode, args=(tmp.name, DROID_EPISODE), daemon=True)
+        target=build_droid_episode, args=(tmp.name, spec or DROID_EPISODE), daemon=True)
     proc.start()
     return proc, tmp, time.perf_counter()
 
@@ -4308,14 +4327,301 @@ def phase_droid(torch, smi, job):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: checkpoint conversion, the demo, the DROID north star and its
+# fine-tuning, each through the entry point a user runs.
+# ---------------------------------------------------------------------------
+
+SLICE_DEVICE = "cuda"  # phase 16's device (a rehearsal on the CPU sets "cpu")
+DEMO_CHUNK = 16  # the demo's --chunk_frames: phase 3's 24 frames in 2 chained segments
+# (a)'s one-step checkpoint to export: the medium release model on a small
+# synthetic scene.
+EXPORT_SCENE = dict(n_views=2, n_frames=8, height=64, width=64, n_tracks=16)
+# (c) The north star at `scripts/eval_droid_track_error.py`'s settings: its
+# first episode (2 external cameras and the wrist at 256x192, 48 frames, 24
+# contact points a finger), the medium model with vis-geom features and a
+# 128-wide visibility MLP in fp32, 3 iterations, grid 0, world scale auto.
+# One episode where the JAX run had 4 (cut for time). The episode is built
+# in a process of its own from the top of the script, as phase 15's is.
+NORTH_EPISODE = dict(seed=0, n_frames=48, n_external_cams=2, width=256, height=192, num_track_points=24)
+NORTH_PLAIN_FRAMES = 16  # the card-vs-CPU request: the episode's first 16 frames
+# Card against CPU on those frames (TF32 off, exact kNN on both): 3 times the
+# larger of the CPU control (`scripts/control_torch_north_star.py`, the plain
+# CPU path against itself with the queries moved by up to 1e-6, run on an
+# 8-core host without the card) and the card's first reading, per weights.
+# Seeded: control traj median / p90 / max 4.79e-7 / 8.94e-7 / 4.72e-6, vis
+# 3.73e-7 / 1.23e-6 / 0.229 (one visibility flips, so the vis max holds
+# nothing); card traj 0.0 / 0.0 / 3.73e-9, vis 2.09e-7 / 6.56e-7 / 1.52e-6.
+# The release amplifies rounding, as in phase 9: control traj 3.73e-5 /
+# 2.25e-3 / 7.18e-2, vis 1.01e-2 / 4.68e-2 / 0.440; card traj 1.25e-6 /
+# 1.06e-4 / 9.69e-3, vis 8.89e-4 / 7.63e-3 / 2.54e-2.
+NORTH_PLAIN_LIMITS = {
+    "seeded": {"traj": {"median": 1.5e-6, "p90": 2.7e-6, "max": 1.5e-5},
+               "vis": {"median": 1.2e-6, "p90": 3.7e-6, "max": 1.0}},
+    "release": {"traj": {"median": 1.2e-4, "p90": 6.8e-3, "max": 0.22},
+                "vis": {"median": 3.1e-2, "p90": 0.15, "max": 1.0}},
+}
+FT_STEPS = 3  # (d) `train_droid_ft_torch.py` steps from (c)'s weights
+
+
+def counted(knn_ops, corr_ops):
+    """A context that records every kNN search and every neighbour
+    correlation the block asks for (the dispatchers' calls), beside the
+    kernels' launch counters."""
+    stack = contextlib.ExitStack()
+    searches, correlations = [], []
+    stack.enter_context(recording(knn_ops, "knn", searches, keep=lambda a, kw, out: 1))
+    stack.enter_context(recording(corr_ops, "corr_select", correlations, keep=lambda a, kw, out: 1))
+    return stack, searches, correlations
+
+
+def every_search_launched(path, counts, searches, correlations) -> None:
+    """Each kNN search went to K1 and each correlation to K2: as many
+    launches as calls, none of them zero."""
+    if not (counts["knn"] == len(searches) > 0 and counts["corr"] == len(correlations) > 0):
+        raise AssertionError(f"{path}: launches {counts} for {len(searches)} kNN searches and {len(correlations)} "
+                             "correlations")
+
+
+def phase_slice(torch, smi, job, release):
+    """Phase 16: (a) `cli.convert` and `export_params_msgpack_torch.py`
+    round trips, (b) `cli.demo`, (c) the DROID north star
+    (`eval_droid_track_error_torch.py`), (d) `train_droid_ft_torch.py`.
+    Returns {path: launch totals}."""
+    import shutil
+
+    from mvtracker_torch import convert
+    from mvtracker_torch.cli import demo as demo_cli
+    from mvtracker_torch.datasets.loader import PrefetchLoader, SyntheticSceneDataset
+    from mvtracker_torch.device import fp32_precision
+    from mvtracker_torch.evaluation.evaluator import to_host
+    from mvtracker_torch.evaluation.predictor import EvaluationPredictor
+    from mvtracker_torch.models.mvtracker import MVTracker
+    from mvtracker_torch.ops import corr as corr_ops
+    from mvtracker_torch.ops import knn as knn_ops
+    from mvtracker_torch.presets import build_model
+    from mvtracker_torch.scene import make_scene
+    from mvtracker_torch.training import step as step_lib
+    from mvtracker_torch.training.train import TrainConfig, Trainer
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import eval_droid_track_error_torch as north_star
+    import export_params_msgpack_torch as export
+    import train_droid_ft_torch as finetune
+
+    dev = torch.device(SLICE_DEVICE)
+    paths = {}
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+
+    # (a) cli.convert: the seeded flagship's state dict under "model", as a
+    # training checkpoint holds it, through the CLI's own process.
+    model = MVTracker(device=dev)
+    sd = convert.random_state_dict(model, seed=0)
+    torch.save({"model": sd, "step": 0}, root / "flagship.pth")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "mvtracker_torch.cli.convert", str(root / "flagship.pth"),
+                          str(root / "flagship.msgpack")], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    convert_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"slice (a): cli.convert exited with {run.returncode}: {run.stderr[-2000:]}")
+    convert.load_release(str(root / "flagship.msgpack"), model)
+    loaded = model.state_dict()
+    differ = [k for k in sd if not torch.equal(loaded[k].cpu(), sd[k])]
+    log(f"slice (a) python -m mvtracker_torch.cli.convert on the seeded flagship (a .pth under 'model'): "
+        f"{run.stdout.strip()!r} in {convert_s:.1f} s (a process of its own), "
+        f"{(root / 'flagship.msgpack').stat().st_size / 2**20:.1f} MiB; load_release strict into a fresh flagship: "
+        f"{len(sd) - len(differ)} of {len(sd)} leaves bit-equal")
+    if differ:
+        raise AssertionError(f"slice (a): leaves differ after the convert round trip: {differ[:8]}")
+    # export_params_msgpack_torch.py --dtype bfloat16 on a one-step checkpoint.
+    medium = build_model("medium", vis_geom=True, vis_head_hidden=128, device=dev)
+    medium.load_state_dict(convert.random_state_dict(medium, seed=1))
+    cfg = TrainConfig(total_steps=1, warmup_steps=0, adaptive_iters=False, train_iters=1, save_ckpt_freq=1,
+                      exp_dir=str(root / "one_step"), tensorboard=False, watchdog_timeout_s=0)
+    ds = SyntheticSceneDataset(n_scenes=1, cache=True, **EXPORT_SCENE)
+    state = Trainer(medium, cfg).fit(iter(PrefetchLoader(ds, batch_size=1, num_workers=1, shuffle=False)),
+                                     max_steps=1)
+    stepped = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        export.main(["--exp_dir", str(root / "one_step"), "--model_size", "medium", "--vis_geom",
+                     "--vis_head_hidden", "128", "--out", str(root / "medium_bf16.msgpack"), "--dtype", "bfloat16",
+                     "--device", SLICE_DEVICE])
+    export_s = time.perf_counter() - t0
+    back = convert.params_from_flax(convert.load_flax_msgpack(str(root / "medium_bf16.msgpack")))
+    differ = [k for k in stepped if not torch.equal(back[k], stepped[k].to(torch.bfloat16).float())]
+    fresh = build_model("medium", vis_geom=True, vis_head_hidden=128, device=dev)
+    convert.load_release(str(root / "medium_bf16.msgpack"), fresh)
+    log(f"slice (a) {out.getvalue().strip()!r} in {export_s:.1f} s: "
+        f"{(root / 'medium_bf16.msgpack').stat().st_size / 2**20:.1f} MiB, {len(stepped) - len(differ)} of "
+        f"{len(stepped)} leaves equal to the step-1 weights rounded to bf16 and widened; load_release strict")
+    if sorted(back) != sorted(stepped) or differ:
+        raise AssertionError(f"slice (a): the bf16 export differs from the checkpoint: {differ[:8]}")
+    del medium, fresh, state, back, stepped
+
+    # (b) cli.demo on phase 3's scene (seed 0) written as a sample NPZ, the
+    # flagship's seeded weights from a --ckpt_dir.
+    rgbs, depths, query, intrs, extrs = make_scene(np.random.default_rng(0), V, T, H, W, N_QUERIES)
+    np.savez(root / "sample.npz", rgbs=rgbs, depths=depths, query_points=query, intrs=intrs, extrs=extrs)
+    demo_trainer = Trainer(model, TrainConfig(exp_dir=str(root / "demo_exp"), tensorboard=False, watchdog_timeout_s=0))
+    demo_trainer.save(step_lib.init_state(model, demo_trainer.optimizer), 1)
+    reset_counts()
+    stack, searches, correlations = counted(knn_ops, corr_ops)
+    t0 = time.perf_counter()
+    with stack, LogRecords() as logs:
+        res = demo_cli.main(["--sample", str(root / "sample.npz"), "--out", str(root / "demo.npz"), "--ckpt_dir",
+                             str(root / "demo_exp"), "--chunk_frames", str(DEMO_CHUNK), "--mp4",
+                             str(root / "demo.mp4"), "--device", SLICE_DEVICE])
+    demo_s = time.perf_counter() - t0
+    paths["demo"] = {k: read_counts().get(k, 0) for k in ("knn", "corr")}
+    every_search_launched("slice (b) demo", paths["demo"], searches, correlations)
+    # `viz/mp4.save_video`: an mp4 or a GIF where imageio can write one, else an .npz frame stack.
+    written = sorted(p.name for p in root.iterdir() if p.name in ("demo.mp4", "demo.gif", "demo.mp4.npz"))
+    saved = np.load(root / "demo.npz")
+    model.eval()
+    direct = EvaluationPredictor(model, interp_shape=None, grid_size=0, n_iters=6, chunk_frames=DEMO_CHUNK)
+    with torch.no_grad():
+        want = direct(*demo_cli.load_sample(str(root / "sample.npz")))
+    equal = (np.array_equal(saved["traj_e"], to_host(want["traj"])) and np.array_equal(saved["vis_e"],
+                                                                                       to_host(want["vis"])))
+    tracked = [m for m in logs.messages if m.startswith("tracked")]
+    log(f"slice (b) python -m mvtracker_torch.cli.demo --chunk_frames {DEMO_CHUNK} --mp4 (flagship fp32, seeded "
+        f"weights from --ckpt_dir, {V} views x {T} frames x {W}x{H}, {N_QUERIES} queries, 6 iterations): "
+        f"{demo_s:.1f} s with the model's build ({tracked[-1] if tracked else 'no timing logged'}), launches "
+        f"{paths['demo']} for {len(searches)} kNN searches and {len(correlations)} correlations; traj_e "
+        f"{saved['traj_e'].shape} and vis_e bit-equal to the predictor called directly: {equal}; "
+        f"mosaic written as {written} [{smi}]")
+    if not (equal and written and np.isfinite(saved["traj_e"]).all() and saved["traj_e"].shape == (T, N_QUERIES, 3)):
+        raise AssertionError("slice (b): the demo's outputs differ from the predictor's, or the mosaic is missing")
+    del model, direct, res, want
+
+    # (c) The north star: seeded medium weights written through the port's
+    # encoder (the strict load then runs), or the release.
+    proc, episode_tmp, _ = job
+    t0 = time.perf_counter()
+    proc.join(timeout=900)
+    waited = time.perf_counter() - t0
+    if proc.exitcode != 0:
+        raise AssertionError(f"slice (c): the episode build ended with exit code {proc.exitcode}")
+    build_s = float((Path(episode_tmp.name) / "build_seconds").read_text())
+    ep_root = episode_tmp.name
+    weights = release
+    if weights is None:
+        seeded = build_model("medium", vis_geom=True, vis_head_hidden=128, device="cpu")
+        weights = str(root / "medium_seeded.msgpack")
+        convert.save_flax_msgpack(convert.convert_reference_state_dict(convert.random_state_dict(seeded, seed=0)),
+                                  weights)
+    argv = ["--root", ep_root, "--episodes", "1", "--frames", str(NORTH_EPISODE["n_frames"]), "--width",
+            str(NORTH_EPISODE["width"]), "--height", str(NORTH_EPISODE["height"]), "--external_cams",
+            str(NORTH_EPISODE["n_external_cams"]), "--track_points", str(NORTH_EPISODE["num_track_points"]),
+            "--params_msgpack", weights, "--out_json", str(root / "north_star.json"), "--device", SLICE_DEVICE]
+    reset_counts()
+    stack, searches, correlations = counted(knn_ops, corr_ops)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with stack, contextlib.redirect_stdout(out):
+        results = north_star.main(argv)
+    north_s = time.perf_counter() - t0
+    paths["north_star"] = {k: read_counts().get(k, 0) for k in ("knn", "corr")}
+    every_search_launched("slice (c) north star", paths["north_star"], searches, correlations)
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    proto = results["protocol"]
+    log(f"slice (c) scripts/eval_droid_track_error_torch.py ({'release' if release else 'seeded'} weights, strict "
+        f"msgpack load; 1 episode of {proto['cams']} cameras x {proto['frames']} frames x "
+        f"{proto['resolution'][1]}x{proto['resolution'][0]}, built in {build_s:.1f} s in its own process, waited "
+        f"{waited:.1f} s; world scale {proto['world_scale']:.4f}; backend {proto['backend']}): median 3D track error "
+        f"{line['median_3d_track_error_m']:.6f} m, CopyCat {line['copycat_median_m']:.6f} m, fps {line['fps']:.2f} "
+        f"(the first timed call of the shape, as the JAX script times it); {north_s:.1f} s; launches "
+        f"{paths['north_star']} for {len(searches)} kNN searches and {len(correlations)} correlations [{smi}]")
+    if not all(np.isfinite(line[k]) for k in line):
+        raise AssertionError(f"slice (c): non-finite results {line}")
+    # The model's predictor on the card against the plain CPU path, on the
+    # episode's first frames (TF32 off, exact kNN on both: ties alike).
+    args = north_star.build_parser().parse_args(argv)
+    scenes = north_star.build_scenes(args)
+    scale = north_star.world_scale(args, scenes)
+    dp = scenes[0]
+    cut = NORTH_PLAIN_FRAMES
+    request = (dp.video[:, :cut], dp.videodepth[:, :cut], dp.query_points_3d, dp.intrs[:, :cut], dp.extrs[:, :cut])
+    outs, seconds = {}, {}
+    for device in (SLICE_DEVICE, "cpu"):
+        mdl = north_star.load_model(args, torch.device(device))
+        mdl.knn_backend = "exact"
+        pred = north_star.model_predictor(args, mdl, scale)
+        t0 = time.perf_counter()
+        with torch.no_grad(), fp32_precision(True):
+            got = pred(*request)
+        outs[device] = (to_host(got["traj"]), to_host(got["vis"]))
+        seconds[device] = time.perf_counter() - t0
+        del mdl, pred
+    check_gaps({"north_star": outs[SLICE_DEVICE]}, {"north_star": outs["cpu"]},
+               NORTH_PLAIN_LIMITS["release" if release else "seeded"],
+               f"slice (c) north star fp32 (TF32 off, exact kNN), the first {cut} frames, card vs plain CPU "
+               f"({seconds['cpu']:.1f} s on the CPU) [{smi}]")
+
+    # (d) train_droid_ft_torch.py from those weights on (c)'s episode, which
+    # is also its monitor episode (placed where the script looks for it).
+    exp = root / "finetune"
+    shutil.copytree(os.path.join(ep_root, "processed", f"episode_{NORTH_EPISODE['seed']:03d}"),
+                    exp / "monitor_episodes" / "processed" / "episode_500")
+    losses = []
+    get_step = Trainer._get_step_fn
+
+    def loss_recording(self, iters):
+        fn = get_step(self, iters)
+
+        def step(state, batch):
+            state, metrics = fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            return state, metrics
+
+        return step
+
+    reset_counts()
+    stack, searches, correlations = counted(knn_ops, corr_ops)
+    out = io.StringIO()
+    Trainer._get_step_fn = loss_recording
+    t0 = time.perf_counter()
+    try:
+        with stack, contextlib.redirect_stdout(out):
+            report = finetune.main(["--episodes_root", os.path.join(ep_root, "processed"), "--eval_root", ep_root,
+                                    "--eval_episodes", "1", "--steps", str(FT_STEPS), "--workers", "1",
+                                    "--eval_every", "0", "--save_every", str(FT_STEPS), "--warm_start", weights,
+                                    "--exp_dir", str(exp), "--device", SLICE_DEVICE])
+    finally:
+        Trainer._get_step_fn = get_step
+    ft_s = time.perf_counter() - t0
+    paths["droid_finetune"] = {k: read_counts().get(k, 0) for k in ("knn", "corr", "corr_bwd")}
+    every_search_launched("slice (d) fine-tune", paths["droid_finetune"], searches, correlations)
+    evals = (exp / "eval_log.jsonl").read_text().splitlines()
+    ours = report["ours"]
+    log(f"slice (d) scripts/train_droid_ft_torch.py --steps {FT_STEPS} (medium fp32, warm start from (c)'s "
+        f"weights, (c)'s episode to train on and to monitor): losses {[round(x, 5) for x in losses]}, {ft_s:.1f} s "
+        f"with the warm start and {len(evals)} evaluation (ATE {ours.get('ate_visible', float('nan')):.2f}, AJ "
+        f"{ours.get('average_jaccard', float('nan')):.2f}; CopyCat ATE "
+        f"{report['copycat'].get('ate_visible', float('nan')):.2f}); launches {paths['droid_finetune']} for "
+        f"{len(searches)} kNN searches and {len(correlations)} correlations [{smi}]")
+    if not (len(losses) == FT_STEPS and all(np.isfinite(losses)) and report["steps"] == FT_STEPS and len(evals) == 1
+            and paths["droid_finetune"]["corr_bwd"] > 0 and (exp / "checkpoints" / f"step_{FT_STEPS}.pt").exists()):
+        raise AssertionError(f"slice (d): losses {losses}, evaluations {len(evals)}, launches "
+                             f"{paths['droid_finetune']}")
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    episode_tmp.cleanup()
+    return paths
+
+
 def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--release", default=None,
-                        help="release checkpoint (flax msgpack) for phases 9 and 10, held against the golden outputs")
+                        help="release checkpoint (flax msgpack) for phases 9 and 10, held against the golden outputs, "
+                             "and the weights of phase 16's north star")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases to run (of 2 to 15; 8 runs with 7) for a quicker check of one "
+                        help="comma-separated phases to run (of 2 to 16; 8 runs with 7) for a quicker check of one "
                              "part; such a run prints no kernels line and no result line")
     cli = parser.parse_args()
     only = None if cli.phases is None else {int(x) for x in cli.phases.split(",")}
@@ -4351,6 +4657,7 @@ def main() -> int:
     log(f"built the FFV1 codec {ffv1.native.library_path(ffv1.SOURCE).relative_to(ROOT)} in "
         f"{time.perf_counter() - t0:.1f} s")
     droid_job = start_droid_episode() if wanted(15) else None
+    north_job = start_droid_episode(NORTH_EPISODE) if wanted(16) else None
     script_t0 = time.perf_counter()
 
     def took(phase, t_start, what):
@@ -4431,9 +4738,13 @@ def main() -> int:
         t0 = time.perf_counter()
         droid = phase_droid(torch, smi, droid_job)
         took(15, t0, "the DROID factory: codecs, episode, refine, track, reproject, cli.train")
+    if wanted(16):
+        t0 = time.perf_counter()
+        slice_paths = phase_slice(torch, smi, north_job, cli.release)
+        took(16, t0, "convert and export round trips, the demo, the DROID north star and its fine-tuning")
     if wanted(13):
-        check_render()  # phase 13's render against its CPU reference, computed beside phases 14 and 15
-    log(f"phases 2 to 15 took {time.perf_counter() - script_t0:.1f} s [{smi}]")
+        check_render()  # phase 13's render against its CPU reference, computed beside phases 14 to 16
+    log(f"phases 2 to 16 took {time.perf_counter() - script_t0:.1f} s [{smi}]")
     if only is not None:
         log(f"partial run of phases {sorted(only)} passed; no kernels line and no result line")
         return 0
@@ -4441,7 +4752,7 @@ def main() -> int:
     # Each path was driven with the counts at 0 just before it; every kernel
     # of a path must have been launched in that path's run.
     paths = {"serving": serving, "training": training, "large_cloud": large, "direct_knn": direct,
-             "evaluation": evaluation, **options, **data_path, **last, **parallel, **droid}
+             "evaluation": evaluation, **options, **data_path, **last, **parallel, **droid, **slice_paths}
     for path, counts in paths.items():
         idle = [key for key, count in counts.items() if count == 0]
         if idle:
@@ -4487,7 +4798,10 @@ def main() -> int:
         "(parallel_knn: the schedules' timed calls; parallel_knn_mesh: 2 requests on 2 ranks; parallel_train: the "
         "bf16 steps on 2 and 4 ranks; parallel_cli_train: 3 steps in a world of 1; parallel_icp: one ICP call and "
         "one z-offset search) and of phase 15 (droid_refine: one cli.droid refine; droid_track: the gripper and "
-        "the mask-guided depth requests of cli.droid track; droid_train: 3 cli.train steps on the episode)")
+        "the mask-guided depth requests of cli.droid track; droid_train: 3 cli.train steps on the episode) and of "
+        "phase 16 (demo: one cli.demo request in 2 chained segments; north_star: the 2 model requests of "
+        "eval_droid_track_error_torch.py on one episode; droid_finetune: 3 train_droid_ft_torch.py steps and its "
+        "one evaluation)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

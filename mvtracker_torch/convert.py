@@ -5,6 +5,12 @@
   `release/mvtracker_medium_synth.msgpack`) into nested dicts of numpy
   arrays, with a msgpack decoder of its own: neither `msgpack` nor `flax`
   is needed. bf16 leaves come back as fp32, widened exactly.
+- `flax_msgpack_bytes(tree)`, `save_flax_msgpack(tree, path)`: the inverse,
+  an encoder of its own that writes the bytes flax writes for a tree of
+  numpy arrays or torch tensors (bf16 and fp16 kept): keys sorted as
+  `msgpack_serialize` sorts them, or with `sort_keys=False` in the tree's
+  order, as `to_bytes` keeps it. A leaf over 1 GiB, which flax would split
+  into chunks, raises.
 - `read_flax_params(path)`: such a file as the port's state dict, with the
   leaves no parameter reads; `load_release(path, model)`: that file into
   `model`, strictly: any leaf missing, extra or of another shape raises and
@@ -18,6 +24,11 @@
   `convert_reference_state_dict` maps the result straight back.
   The mapping is a fixed re-layout, so it carries any tree of that
   structure: a gradient tree, or AdamW's `mu` and `nu`.
+- `convert_reference_state_dict(sd)`, `load_reference_checkpoint(path)`,
+  `convert_vggt_state_dict(sd)`: the other way, a reference (or port) state
+  dict -> the flax tree the JAX package's functions of those names give.
+  Each mapping is one layout function (`_mvtracker`, `_vggt`) that a
+  `_Walk` reads in either direction, so the two ways share one table.
 - `updateformer_from_flax(params)`, `point_transformer_from_flax(params)`:
   the same for the update transformer alone, and for the point
   transformer alone (`params_from_flax` maps it inside a tracker's tree,
@@ -176,157 +187,386 @@ def load_flax_msgpack(path: str) -> dict:
     return tree
 
 
-def _conv(p, name):
-    out = {f"{name}.weight": np.asarray(p["kernel"]).transpose(3, 2, 0, 1)}
-    if "bias" in p:
-        out[f"{name}.bias"] = np.asarray(p["bias"])
-    return out
+# flax's MAX_CHUNK_SIZE: flax writes a leaf of more bytes as a map of chunks,
+# which `load_flax_msgpack` refuses, so the encoder refuses it too.
+MAX_LEAF_BYTES = 2**30
+_EXT_NPSCALAR = 3  # flax's ext code for a numpy scalar: packed like an ndarray of shape ()
+_TORCH_DTYPE_NAMES = {
+    torch.float64: "float64", torch.float32: "float32", torch.float16: "float16", torch.bfloat16: "bfloat16",
+    torch.int64: "int64", torch.int32: "int32", torch.int16: "int16", torch.int8: "int8", torch.uint8: "uint8",
+    torch.bool: "bool",
+}
 
 
-def _dense(p, name):
-    out = {f"{name}.weight": np.asarray(p["kernel"]).T}
-    if "bias" in p:
-        out[f"{name}.bias"] = np.asarray(p["bias"])
-    return out
+def _head(n: int, fix: int, fix_max: int, codes: tuple) -> bytes:
+    """The header of a str, bin, array, map or ext of length `n`: the fixed
+    form up to `fix_max` (when the type has one), else the smallest of the
+    8-, 16- and 32-bit length forms `codes` allows."""
+    if n <= fix_max:
+        return bytes([fix | n])
+    for code, fmt in zip(codes, (">B", ">H", ">I")[3 - len(codes):]):
+        if n <= (1 << (8 * struct.calcsize(fmt))) - 1:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack: a length of {n} does not fit 32 bits")
 
 
-def _norm(p, name):
-    return {f"{name}.weight": np.asarray(p["scale"]), f"{name}.bias": np.asarray(p["bias"])}
+def _int(v: int) -> bytes:
+    if 0 <= v <= 0x7F:
+        return bytes([v])
+    if -32 <= v < 0:
+        return struct.pack(">b", v)
+    forms = ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")) if v >= 0 else (
+        (0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q"))
+    for code, fmt in forms:
+        try:
+            return bytes([code]) + struct.pack(fmt, v)
+        except struct.error:
+            continue
+    raise OverflowError(f"msgpack: {v} does not fit 64 bits")
 
 
-def _attn_block(p, name):
-    key = "attn" if "attn" in p else "cross_attn"
-    out = {}
+def _array_parts(x):
+    """(shape, dtype name, C-order bytes, byte count) of a numpy array or a
+    torch tensor; the bytes are made only when asked for."""
+    if torch.is_tensor(x):
+        if x.dtype not in _TORCH_DTYPE_NAMES:
+            raise TypeError(f"msgpack: no flax dtype name for a {x.dtype} tensor")
+        nbytes = x.numel() * x.element_size()
+
+        def data():
+            t = x.detach().cpu().contiguous()
+            return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes()
+
+        return tuple(x.shape), _TORCH_DTYPE_NAMES[x.dtype], data, nbytes
+    if x.dtype.hasobject or x.dtype.isalignedstruct:
+        raise TypeError("msgpack: object and structured dtypes have no flax encoding")
+    return x.shape, x.dtype.name, lambda: x.tobytes("C"), x.size * x.dtype.itemsize
+
+
+def _pack(obj, sort_keys: bool, path: str = ""):
+    """Yield the msgpack bytes of `obj` as flax writes them: `msgpack.packb(
+    ..., use_bin_type=True)`, arrays as ext type 1 (numpy scalars 3) whose
+    payload is the packed (shape, dtype name, C-order bytes)."""
+    if isinstance(obj, dict):
+        items = sorted(obj.items()) if sort_keys else obj.items()
+        yield _head(len(obj), 0x80, 15, (0xDE, 0xDF))
+        for key, value in items:
+            yield from _pack(key, sort_keys)
+            yield from _pack(value, sort_keys, f"{path}/{key}")
+    elif torch.is_tensor(obj) or isinstance(obj, (np.ndarray, np.generic)):
+        code = _EXT_NPSCALAR if isinstance(obj, np.generic) else _EXT_NDARRAY
+        shape, name, data, nbytes = _array_parts(np.asarray(obj) if code == _EXT_NPSCALAR else obj)
+        if nbytes > MAX_LEAF_BYTES:
+            raise ValueError(f"{path or 'the leaf'}: {nbytes} bytes; flax writes a leaf over {MAX_LEAF_BYTES} bytes as "
+                             "chunks, which this encoder and load_flax_msgpack do not support")
+        payload = b"".join(_pack([list(shape), name, data()], sort_keys))
+        yield _head(len(payload), 0, -1, (0xC7, 0xC8, 0xC9)) if len(payload) not in (1, 2, 4, 8, 16) else bytes(
+            [0xD4 + len(payload).bit_length() - 1])
+        yield struct.pack(">b", code)
+        yield payload
+    elif obj is None:
+        yield b"\xc0"
+    elif isinstance(obj, bool):
+        yield b"\xc3" if obj else b"\xc2"
+    elif isinstance(obj, int):
+        yield _int(obj)
+    elif isinstance(obj, float):
+        yield b"\xcb" + struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        yield _head(len(raw), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        yield raw
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        yield _head(len(obj), 0, -1, (0xC4, 0xC5, 0xC6))
+        yield bytes(obj)
+    elif isinstance(obj, (list, tuple)):
+        yield _head(len(obj), 0x90, 15, (0xDC, 0xDD))
+        for value in obj:
+            yield from _pack(value, sort_keys, path)
+    else:
+        raise TypeError(f"msgpack: {path or 'the tree'}: cannot encode a {type(obj).__name__}")
+
+
+def flax_msgpack_bytes(tree, sort_keys: bool = True) -> bytes:
+    """The bytes flax writes for a params tree (nested dicts whose leaves are
+    numpy arrays or torch tensors; bf16 and fp16 tensors keep their dtype
+    and raw 2-byte words). With `sort_keys` those of
+    `flax.serialization.msgpack_serialize` (which passes the tree through
+    `jax.tree_util`, so every dict's keys come out sorted); without, those
+    of `flax.serialization.to_bytes`, which keeps each dict's insertion
+    order. A leaf over 1 GiB raises, naming it (flax would chunk it)."""
+    return b"".join(_pack(tree, sort_keys))
+
+
+def save_flax_msgpack(tree, path: str, sort_keys: bool = True) -> int:
+    """Write `flax_msgpack_bytes(tree, sort_keys)` to `path`, piece by piece
+    (the whole file is never held twice); returns the bytes written. Nothing
+    is written when a leaf is refused."""
+    pieces = list(_pack(tree, sort_keys))
+    with open(path, "wb") as f:
+        for piece in pieces:
+            f.write(piece)
+    return sum(len(p) for p in pieces)
+
+
+# ---------------------------------------------------------------------------
+# The parameter layout, one table read in both directions
+# ---------------------------------------------------------------------------
+
+# A flax leaf -> the port's tensor, and back.
+_TO_PORT = {
+    "plain": lambda a: a,
+    "conv": lambda a: a.transpose(3, 2, 0, 1),  # (kh, kw, I, O) -> (O, I, kh, kw)
+    "dense": lambda a: a.T,  # (I, O) -> (O, I)
+    # flax's transposed convolution is a fractionally strided correlation,
+    # torch's the gradient of one, so the taps land mirrored.
+    "deconv": lambda a: np.ascontiguousarray(a[::-1, ::-1].transpose(2, 3, 0, 1)),  # -> (I, O, kh, kw)
+    "batch": lambda a: a[None],  # VGGT's camera and register tokens carry a batch axis in torch
+}
+_TO_FLAX = {
+    "plain": lambda a: a,
+    "conv": lambda a: a.transpose(2, 3, 1, 0),
+    "dense": lambda a: a.T,
+    "deconv": lambda a: np.ascontiguousarray(a.transpose(2, 3, 0, 1)[::-1, ::-1]),
+    "batch": lambda a: a[0],
+}
+
+
+def _to_numpy(v) -> np.ndarray:
+    if torch.is_tensor(v):
+        v = v.detach().cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+    return np.asarray(v)
+
+
+class _Slices(dict):
+    """Depth index -> one block's leaf, stacked on axis 0 when the walk ends."""
+
+
+class _Walk:
+    """One pass over a model's parameter layout. Built with `tree` (the JAX
+    package's params, nested dicts) it reads that tree and fills `out` with
+    the port's state dict; built with `sd` (a state dict, of tensors or
+    arrays) it reads that and fills `out` with the flax tree. The layout
+    functions below name every parameter once, by its flax path and its port
+    name, so the two directions cannot drift apart."""
+
+    def __init__(self, tree=None, sd=None):
+        self.to_port = tree is not None
+        self.src = tree if self.to_port else sd
+        self.out = {}
+        self.read = set()  # "/"-joined flax paths of the leaves read (towards the port)
+
+    def _node(self, path):
+        node = self.src
+        for key in path:
+            if not isinstance(node, dict) or key not in node:
+                return None
+            node = node[key]
+        return node
+
+    def has(self, path, name) -> bool:
+        """Whether the source holds the part at flax `path`, or port key `name`."""
+        return self._node(path) is not None if self.to_port else name in self.src
+
+    def count(self, path_of, name_of) -> int:
+        """How many consecutive blocks i = 0, 1, ... the source holds."""
+        i = 0
+        while self.has(path_of(i), name_of(i)):
+            i += 1
+        return i
+
+    def depth(self, path, name_of) -> int:
+        """A stacked part's depth: axis 0 of the flax leaf at `path`, or the
+        consecutive blocks `name_of(i)` of the state dict."""
+        if self.to_port:
+            node = self._node(path)
+            if node is None:
+                raise KeyError("/".join(path))
+            return np.shape(node)[0]
+        return self.count(lambda i: path, name_of)
+
+    def leaf(self, path, name, kind="plain", index=None):
+        """One parameter: flax `path` (slice `index` of a stacked leaf) <-> port `name`."""
+        if self.to_port:
+            value = self._node(path)
+            if value is None:
+                raise KeyError("/".join(path))
+            self.read.add("/".join(path))
+            value = np.asarray(value)
+            self.out[name] = _TO_PORT[kind](value if index is None else value[index])
+            return
+        value = _TO_FLAX[kind](_to_numpy(self.src[name]))
+        node = self.out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        if index is None:
+            node[path[-1]] = value
+        else:
+            node.setdefault(path[-1], _Slices())[index] = value
+
+    def result(self) -> dict:
+        def finish(node):
+            if isinstance(node, _Slices):
+                return np.stack([node[i] for i in range(len(node))])
+            if isinstance(node, dict):
+                return {k: finish(v) for k, v in node.items()}
+            return node
+
+        return finish(self.out)
+
+
+def _to_port(params, layout) -> tuple[dict[str, torch.Tensor], set]:
+    """Flax params (with or without the outer "params" key) through `layout`
+    -> (the port's state dict as fp32 tensors, the flax paths read)."""
+    walk = _Walk(tree=params)
+    layout(walk, ("params",) if "params" in params else ())
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in walk.out.items()}, walk.read
+
+
+def _to_flax(sd, layout) -> dict:
+    """A state dict through `layout` -> the flax params tree (numpy leaves, the
+    state dict's dtypes, bf16 widened to fp32), under "params"."""
+    walk = _Walk(sd=sd)
+    layout(walk, ("params",))
+    return walk.result()
+
+
+def _conv(m, f, name):
+    m.leaf(f + ("kernel",), f"{name}.weight", "conv")
+    if m.has(f + ("bias",), f"{name}.bias"):
+        m.leaf(f + ("bias",), f"{name}.bias")
+
+
+def _dense(m, f, name, index=None):
+    m.leaf(f + ("kernel",), f"{name}.weight", "dense", index)
+    if m.has(f + ("bias",), f"{name}.bias"):
+        m.leaf(f + ("bias",), f"{name}.bias", index=index)
+
+
+def _norm(m, f, name, index=None):
+    m.leaf(f + ("scale",), f"{name}.weight", index=index)
+    m.leaf(f + ("bias",), f"{name}.bias", index=index)
+
+
+def _attn_block(m, f, name, cross=False, index=None):
+    attn = "cross_attn" if cross else "attn"
     for lin in ("to_q", "to_kv", "to_out"):
-        out.update(_dense(p[key][lin], f"{name}.{key}.{lin}"))
-    out.update(_dense(p["mlp"]["fc1"], f"{name}.mlp.fc1"))
-    out.update(_dense(p["mlp"]["fc2"], f"{name}.mlp.fc2"))
-    if "norm_context" in p:
-        out.update(_norm(p["norm_context"], f"{name}.norm_context"))
-    return out
+        _dense(m, f + (attn, lin), f"{name}.{attn}.{lin}", index)
+    _dense(m, f + ("mlp", "fc1"), f"{name}.mlp.fc1", index)
+    _dense(m, f + ("mlp", "fc2"), f"{name}.mlp.fc2", index)
+    if cross:
+        _norm(m, f + ("norm_context",), f"{name}.norm_context", index)
 
 
-def _unstack(tree, i):
-    """Slice depth i out of a stacked (axis 0) parameter tree."""
-    return {k: _unstack(v, i) if isinstance(v, dict) else np.asarray(v)[i] for k, v in tree.items()}
-
-
-def _space_blocks(layer, i, prefix="updateformer."):
-    out = _attn_block(layer["sv2p"], f"{prefix}space_virtual2point_blocks.{i}")
-    out.update(_attn_block(layer["svirt"], f"{prefix}space_virtual_blocks.{i}"))
-    out.update(_attn_block(layer["sp2v"], f"{prefix}space_point2virtual_blocks.{i}"))
-    return out
-
-
-def _updateformer(uf, prefix):
-    sd = _dense(uf["input_transform"], f"{prefix}input_transform")
-    sd[f"{prefix}virual_tracks"] = np.asarray(uf["virtual_tracks"])
+def _updateformer(m, f, prefix):
+    _dense(m, f + ("input_transform",), f"{prefix}input_transform")
+    m.leaf(f + ("virtual_tracks",), f"{prefix}virual_tracks")  # sic: the reference's name
     # 1:1 interleave, depth stacked on axis 0 (`migrate_updateformer_layout`
-    # brings older files to this layout)
-    depth = np.asarray(uf["layers"]["time"]["mlp"]["fc1"]["kernel"]).shape[0]
+    # brings older files to this layout).
+    layers = f + ("layers",)
+    depth = m.depth(layers + ("time", "mlp", "fc1", "kernel"), lambda i: f"{prefix}time_blocks.{i}.mlp.fc1.weight")
+    if not m.to_port:
+        space = m.count(lambda i: None, lambda i: f"{prefix}space_virtual_blocks.{i}.mlp.fc1.weight")
+        if space != depth:
+            raise ValueError(f"time depth {depth} and space depth {space} differ; the port's layout stacks them 1:1")
     for i in range(depth):
-        layer = _unstack(uf["layers"], i)
-        sd.update(_attn_block(layer["time"], f"{prefix}time_blocks.{i}"))
-        sd.update(_space_blocks(layer, i, prefix))
+        _attn_block(m, layers + ("time",), f"{prefix}time_blocks.{i}", index=i)
+        _attn_block(m, layers + ("sv2p",), f"{prefix}space_virtual2point_blocks.{i}", cross=True, index=i)
+        _attn_block(m, layers + ("svirt",), f"{prefix}space_virtual_blocks.{i}", index=i)
+        _attn_block(m, layers + ("sp2v",), f"{prefix}space_point2virtual_blocks.{i}", cross=True, index=i)
     for fi, ti in ((0, 0), (1, 2), (2, 4)):
-        sd.update(_dense(uf[f"flow_head_{fi}"], f"{prefix}flow_head.{ti}"))
-    if "support_memory" in uf:
-        sd[f"{prefix}support_memory"] = np.asarray(uf["support_memory"])
-        sd.update(_loftr(uf["gnn"], f"{prefix}gnn."))
-    return sd
+        _dense(m, f + (f"flow_head_{fi}",), f"{prefix}flow_head.{ti}")
+    if m.has(f + ("support_memory",), f"{prefix}support_memory"):
+        m.leaf(f + ("support_memory",), f"{prefix}support_memory")
+        _loftr_layout(m, f + ("gnn",), f"{prefix}gnn.")
+
+
+def _loftr_layout(m, f, prefix):
+    """flax LocalFeatureTransformer params (layer_{i}/{q_proj, k_proj, v_proj,
+    merge, mlp_0, mlp_1, norm1, norm2}) <-> the reference's names."""
+    for i in range(m.count(lambda i: f + (f"layer_{i}",), lambda i: f"{prefix}layers.{i}.q_proj.weight")):
+        layer, name = f + (f"layer_{i}",), f"{prefix}layers.{i}"
+        for lin in ("q_proj", "k_proj", "v_proj", "merge"):
+            _dense(m, layer + (lin,), f"{name}.{lin}")
+        _dense(m, layer + ("mlp_0",), f"{name}.mlp.0")
+        _dense(m, layer + ("mlp_1",), f"{name}.mlp.2")
+        _norm(m, layer + ("norm1",), f"{name}.norm1")
+        _norm(m, layer + ("norm2",), f"{name}.norm2")
+
+
+def _point_transformer(m, f, prefix):
+    _dense(m, f + ("proj_in",), f"{prefix}proj_in")
+    for d in range(m.count(lambda d: f + (f"block_{d}",), lambda d: f"{prefix}blocks.{d}.attn.to_q.weight")):
+        _attn_block(m, f + (f"block_{d}",), f"{prefix}blocks.{d}")
+    _dense(m, f + ("proj_out",), f"{prefix}proj_out")
+
+
+def _mvtracker(m, f):
+    """MVTracker, in the insertion order of the JAX package's
+    `convert_reference_state_dict` (which `flax.serialization.to_bytes` keeps)."""
+    fnet = f + ("fnet",)
+    for name in ("conv1", "conv2", "conv3"):
+        _conv(m, fnet + (name,), f"fnet.{name}")
+    for layer in range(1, 5):
+        for j in range(2):
+            blk, prefix = fnet + (f"layer{layer}_{j}",), f"fnet.layer{layer}.{j}"
+            _conv(m, blk + ("conv1",), f"{prefix}.conv1")
+            _conv(m, blk + ("conv2",), f"{prefix}.conv2")
+            if m.has(blk + ("downsample",), f"{prefix}.downsample.0.weight"):
+                _conv(m, blk + ("downsample",), f"{prefix}.downsample.0")
+    _updateformer(m, f + ("updateformer",), "updateformer.")
+    _norm(m, f + ("ffeats_norm",), "ffeats_norm")
+    _dense(m, f + ("ffeats_updater",), "ffeats_updater.0")
+    if m.has(f + ("vis_hidden",), "vis_hidden.weight"):
+        _dense(m, f + ("vis_hidden",), "vis_hidden")
+    _dense(m, f + ("vis_predictor",), "vis_predictor.0")
+    if m.has(f + ("cloud_backbone",), "cloud_backbone.proj_in.weight"):
+        _point_transformer(m, f + ("cloud_backbone",), "cloud_backbone.")
 
 
 def params_from_flax(params) -> dict[str, torch.Tensor]:
     """Flax MVTracker params -> the port's state dict (fp32 tensors on the CPU)."""
-    p = params.get("params", params)
-    sd = {}
-    fnet = p["fnet"]
-    for name in ("conv1", "conv2", "conv3"):
-        sd.update(_conv(fnet[name], f"fnet.{name}"))
-    for layer in range(1, 5):
-        for j in range(2):
-            blk = fnet[f"layer{layer}_{j}"]
-            prefix = f"fnet.layer{layer}.{j}"
-            sd.update(_conv(blk["conv1"], f"{prefix}.conv1"))
-            sd.update(_conv(blk["conv2"], f"{prefix}.conv2"))
-            if "downsample" in blk:
-                sd.update(_conv(blk["downsample"], f"{prefix}.downsample.0"))
-
-    sd.update(_updateformer(p["updateformer"], "updateformer."))
-    sd.update(_norm(p["ffeats_norm"], "ffeats_norm"))
-    sd.update(_dense(p["ffeats_updater"], "ffeats_updater.0"))
-    if "vis_hidden" in p:
-        sd.update(_dense(p["vis_hidden"], "vis_hidden"))
-    sd.update(_dense(p["vis_predictor"], "vis_predictor.0"))
-    if "cloud_backbone" in p:
-        sd.update(_point_transformer(p["cloud_backbone"], "cloud_backbone."))
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+    return _to_port(params, _mvtracker)[0]
 
 
-def _loftr(p, prefix):
-    """flax LocalFeatureTransformer params (layer_{i}/{q_proj, k_proj, v_proj,
-    merge, mlp_0, mlp_1, norm1, norm2}) -> the reference's names."""
-    sd = {}
-    i = 0
-    while f"layer_{i}" in p:
-        layer, name = p[f"layer_{i}"], f"{prefix}layers.{i}"
-        for lin in ("q_proj", "k_proj", "v_proj", "merge"):
-            sd.update(_dense(layer[lin], f"{name}.{lin}"))
-        sd.update(_dense(layer["mlp_0"], f"{name}.mlp.0"))
-        sd.update(_dense(layer["mlp_1"], f"{name}.mlp.2"))
-        sd.update(_norm(layer["norm1"], f"{name}.norm1"))
-        sd.update(_norm(layer["norm2"], f"{name}.norm2"))
-        i += 1
-    return sd
+def convert_reference_state_dict(sd) -> dict:
+    """A state dict of the reference torch MVTracker or of the port's (tensors
+    or arrays) -> the JAX package's params tree {"params": ...} of numpy
+    arrays, as `mvtracker_tpu.convert.convert_reference_state_dict` gives it:
+    the inverse of `params_from_flax`, with the update transformer's depth
+    read from the keys and its blocks stacked on axis 0. Keys of no
+    parameter (a training checkpoint's extras) are not read."""
+    return _to_flax(sd, _mvtracker)
 
 
-def _point_transformer(p, prefix):
-    sd = _dense(p["proj_in"], f"{prefix}proj_in")
-    d = 0
-    while f"block_{d}" in p:
-        sd.update(_attn_block(p[f"block_{d}"], f"{prefix}blocks.{d}"))
-        d += 1
-    sd.update(_dense(p["proj_out"], f"{prefix}proj_out"))
-    return sd
+def load_reference_checkpoint(path: str) -> dict:
+    """A reference `.pth` (or a port checkpoint) -> `convert_reference_state_dict`
+    of it. A training checkpoint that nests the model under "model" is
+    unwrapped; the file is read with `torch.load(weights_only=True)`."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(ckpt, dict) and "model" in ckpt and not any(str(k).startswith("fnet") for k in ckpt):
+        ckpt = ckpt["model"]
+    return convert_reference_state_dict(ckpt)
+
+
+def _loftr(params, prefix) -> dict[str, np.ndarray]:
+    """The JAX package's LocalFeatureTransformer params -> the port's names."""
+    walk = _Walk(tree=params)
+    _loftr_layout(walk, (), prefix)
+    return walk.out
 
 
 def updateformer_from_flax(params) -> dict[str, torch.Tensor]:
     """The JAX package's `EfficientUpdateFormer` params (its support memory
     too) -> a state dict for `mvtracker_torch.models.updateformer.EfficientUpdateFormer`."""
-    sd = _updateformer(params.get("params", params), "")
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+    return _to_port(params, lambda m, f: _updateformer(m, f, ""))[0]
 
 
 def point_transformer_from_flax(params) -> dict[str, torch.Tensor]:
     """The JAX package's `SerializedPointTransformer` params -> a state dict
     for `mvtracker_torch.models.point_transformer.SerializedPointTransformer`."""
-    sd = _point_transformer(params.get("params", params), "")
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
-
-
-class _Recorder(dict):
-    """A params tree that records the path of every leaf read from it, so
-    that `load_release` can name the leaves `params_from_flax` left unread."""
-
-    def __init__(self, tree, seen, path=""):
-        super().__init__(tree)
-        self._seen, self._path = seen, path
-
-    def _wrap(self, key, value):
-        path = f"{self._path}/{key}" if self._path else str(key)
-        if isinstance(value, dict):
-            return _Recorder(value, self._seen, path)
-        self._seen.add(path)
-        return value
-
-    def __getitem__(self, key):
-        return self._wrap(key, super().__getitem__(key))
-
-    def get(self, key, default=None):
-        return self[key] if key in self else default
-
-    def items(self):
-        return [(k, self._wrap(k, v)) for k, v in super().items()]
+    return _to_port(params, lambda m, f: _point_transformer(m, f, ""))[0]
 
 
 def _leaf_paths(tree, path=""):
@@ -366,12 +606,11 @@ def read_flax_params(path: str) -> tuple[dict[str, torch.Tensor], list[str]]:
     migrated first. A tree that lacks a part of the layout raises
     ValueError."""
     tree = migrate_updateformer_layout(load_flax_msgpack(path))
-    seen: set = set()
     try:
-        sd = params_from_flax(_Recorder(tree, seen))
+        sd, read = _to_port(tree, _mvtracker)
     except KeyError as e:
         raise ValueError(f"{path}: the params tree lacks {e} that the model's layout needs") from None
-    return sd, sorted(set(_leaf_paths(tree)) - seen)
+    return sd, sorted(set(_leaf_paths(tree)) - read)
 
 
 def load_release(path: str, model: nn.Module) -> nn.Module:
@@ -487,88 +726,100 @@ def random_state_dict(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
-def _deconv(p, name):
-    """flax ConvTranspose -> torch ConvTranspose2d: flax's transposed
-    convolution is a fractionally strided correlation, torch's the gradient
-    of one, so the taps land mirrored."""
-    w = np.asarray(p["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1)
-    return {f"{name}.weight": np.ascontiguousarray(w), f"{name}.bias": np.asarray(p["bias"])}
-
-
-def _vggt_block(p, name):
-    sd = {**_norm(p["norm1"], f"{name}.norm1"), **_norm(p["norm2"], f"{name}.norm2"),
-          f"{name}.ls1.gamma": np.asarray(p["ls1"]), f"{name}.ls2.gamma": np.asarray(p["ls2"])}
-    sd.update(_dense(p["attn"]["qkv"], f"{name}.attn.qkv"))
-    sd.update(_dense(p["attn"]["proj"], f"{name}.attn.proj"))
+def _vggt_block(m, f, name):
+    """In the JAX converter's order: norm1, attn (qkv, proj, the q/k norms of
+    the aggregator's blocks), ls1, norm2, the MLP, ls2."""
+    _norm(m, f + ("norm1",), f"{name}.norm1")
+    _dense(m, f + ("attn", "qkv"), f"{name}.attn.qkv")
+    _dense(m, f + ("attn", "proj"), f"{name}.attn.proj")
     for qk in ("q_norm", "k_norm"):
-        if qk in p["attn"]:
-            sd.update(_norm(p["attn"][qk], f"{name}.attn.{qk}"))
-    sd.update(_dense(p["mlp_fc1"], f"{name}.mlp.fc1"))
-    sd.update(_dense(p["mlp_fc2"], f"{name}.mlp.fc2"))
-    return sd
+        if m.has(f + ("attn", qk), f"{name}.attn.{qk}.weight"):
+            _norm(m, f + ("attn", qk), f"{name}.attn.{qk}")
+    m.leaf(f + ("ls1",), f"{name}.ls1.gamma")
+    _norm(m, f + ("norm2",), f"{name}.norm2")
+    _dense(m, f + ("mlp_fc1",), f"{name}.mlp.fc1")
+    _dense(m, f + ("mlp_fc2",), f"{name}.mlp.fc2")
+    m.leaf(f + ("ls2",), f"{name}.ls2.gamma")
 
 
-def _dpt_head(p, name):
-    sd = _norm(p["norm"], f"{name}.norm")
+def _deconv(m, f, name):
+    m.leaf(f + ("kernel",), f"{name}.weight", "deconv")
+    if m.has(f + ("bias",), f"{name}.bias"):
+        m.leaf(f + ("bias",), f"{name}.bias")
+
+
+def _dpt_head(m, f, name):
+    _norm(m, f + ("norm",), f"{name}.norm")
     for li in range(4):
-        sd.update(_conv(p[f"project_{li}"], f"{name}.projects.{li}"))
-        sd.update(_conv(p[f"scratch_{li}"], f"{name}.scratch.layer{li + 1}_rn"))
-    sd.update(_deconv(p["resize_0"], f"{name}.resize_layers.0"))
-    sd.update(_deconv(p["resize_1"], f"{name}.resize_layers.1"))
-    sd.update(_conv(p["resize_3"], f"{name}.resize_layers.3"))
+        _conv(m, f + (f"project_{li}",), f"{name}.projects.{li}")
+        _conv(m, f + (f"scratch_{li}",), f"{name}.scratch.layer{li + 1}_rn")
+    _deconv(m, f + ("resize_0",), f"{name}.resize_layers.0")
+    _deconv(m, f + ("resize_1",), f"{name}.resize_layers.1")
+    _conv(m, f + ("resize_3",), f"{name}.resize_layers.3")
     for li in range(1, 5):
-        blk, ref = p[f"refine{li}"], f"{name}.scratch.refinenet{li}"
+        blk, ref = f + (f"refine{li}",), f"{name}.scratch.refinenet{li}"
         for unit in ("res1", "res2"):
-            if f"{unit}_conv1" in blk:
+            if m.has(blk + (f"{unit}_conv1",), f"{ref}.resConfUnit{unit[-1]}.conv1.weight"):
                 for conv in ("conv1", "conv2"):
-                    sd.update(_conv(blk[f"{unit}_{conv}"], f"{ref}.resConfUnit{unit[-1]}.{conv}"))
-        sd.update(_conv(blk["out_conv"], f"{ref}.out_conv"))
-    sd.update(_conv(p["out_conv1"], f"{name}.scratch.output_conv1"))
-    sd.update(_conv(p["out_conv2a"], f"{name}.scratch.output_conv2.0"))
-    sd.update(_conv(p["out_conv2b"], f"{name}.scratch.output_conv2.2"))
-    return sd
+                    _conv(m, blk + (f"{unit}_{conv}",), f"{ref}.resConfUnit{unit[-1]}.{conv}")
+        _conv(m, blk + ("out_conv",), f"{ref}.out_conv")
+    _conv(m, f + ("out_conv1",), f"{name}.scratch.output_conv1")
+    _conv(m, f + ("out_conv2a",), f"{name}.scratch.output_conv2.0")
+    _conv(m, f + ("out_conv2b",), f"{name}.scratch.output_conv2.2")
 
 
-def _numbered(tree, prefix):
-    """The keys `<prefix><i>` of `tree`, in the order of i."""
-    keys = [k for k in tree if k.startswith(prefix) and k[len(prefix):].isdigit()]
-    return sorted(keys, key=lambda k: int(k[len(prefix):]))
+def _vggt(m, f):
+    agg = f + ("aggregator",)
+    m.leaf(agg + ("camera_token",), "aggregator.camera_token", "batch")
+    m.leaf(agg + ("register_token",), "aggregator.register_token", "batch")
+    for i in range(m.count(lambda i: agg + (f"frame_{i}",), lambda i: f"aggregator.frame_blocks.{i}.norm1.weight")):
+        _vggt_block(m, agg + (f"frame_{i}",), f"aggregator.frame_blocks.{i}")
+        _vggt_block(m, agg + (f"global_{i}",), f"aggregator.global_blocks.{i}")
+    vit = agg + ("patch_vit",)
+    if m.has(vit, "aggregator.patch_embed.patch_embed.proj.weight"):
+        _conv(m, vit + ("proj",), "aggregator.patch_embed.patch_embed.proj")
+        for leaf in ("cls_token", "pos_embed", "register_tokens"):
+            m.leaf(vit + (leaf,), f"aggregator.patch_embed.{leaf}")
+        _norm(m, vit + ("norm",), "aggregator.patch_embed.norm")
+        blocks = m.count(lambda i: vit + (f"block_{i}",), lambda i: f"aggregator.patch_embed.blocks.{i}.norm1.weight")
+        for i in range(blocks):
+            _vggt_block(m, vit + (f"block_{i}",), f"aggregator.patch_embed.blocks.{i}")
+    else:  # the conv patchify variant
+        _conv(m, agg + ("patch_embed",), "aggregator.patch_embed.proj")
+
+    cam = f + ("camera_head",)
+    _norm(m, cam + ("token_norm",), "camera_head.token_norm")
+    _norm(m, cam + ("trunk_norm",), "camera_head.trunk_norm")
+    m.leaf(cam + ("empty_pose_tokens",), "camera_head.empty_pose_tokens")
+    _dense(m, cam + ("embed_pose",), "camera_head.embed_pose")
+    _dense(m, cam + ("pose_modulation",), "camera_head.poseLN_modulation.1")  # Sequential(SiLU, Linear)
+    _dense(m, cam + ("pose_branch_fc1",), "camera_head.pose_branch.fc1")
+    _dense(m, cam + ("pose_branch_fc2",), "camera_head.pose_branch.fc2")
+    for i in range(m.count(lambda i: cam + (f"trunk_{i}",), lambda i: f"camera_head.trunk.{i}.norm1.weight")):
+        _vggt_block(m, cam + (f"trunk_{i}",), f"camera_head.trunk.{i}")
+    _dpt_head(m, f + ("depth_head",), "depth_head")
+    _dpt_head(m, f + ("point_head",), "point_head")
 
 
 def vggt_params_from_flax(params) -> dict[str, torch.Tensor]:
     """The JAX package's VGGT params (with or without the outer "params"
     key) -> the port's VGGT state dict (fp32 tensors on the CPU)."""
-    p = params.get("params", params)
-    agg = p["aggregator"]
-    sd = {"aggregator.camera_token": np.asarray(agg["camera_token"])[None],
-          "aggregator.register_token": np.asarray(agg["register_token"])[None]}
-    for i, key in enumerate(_numbered(agg, "frame_")):
-        sd.update(_vggt_block(agg[key], f"aggregator.frame_blocks.{i}"))
-        sd.update(_vggt_block(agg[f"global_{i}"], f"aggregator.global_blocks.{i}"))
-    if "patch_vit" in agg:
-        vit = agg["patch_vit"]
-        sd.update(_conv(vit["proj"], "aggregator.patch_embed.patch_embed.proj"))
-        for leaf in ("cls_token", "pos_embed", "register_tokens"):
-            sd[f"aggregator.patch_embed.{leaf}"] = np.asarray(vit[leaf])
-        sd.update(_norm(vit["norm"], "aggregator.patch_embed.norm"))
-        for i, key in enumerate(_numbered(vit, "block_")):
-            sd.update(_vggt_block(vit[key], f"aggregator.patch_embed.blocks.{i}"))
-    else:
-        sd.update(_conv(agg["patch_embed"], "aggregator.patch_embed.proj"))
+    return _to_port(params, _vggt)[0]
 
-    cam = p["camera_head"]
-    sd.update(_norm(cam["token_norm"], "camera_head.token_norm"))
-    sd.update(_norm(cam["trunk_norm"], "camera_head.trunk_norm"))
-    sd["camera_head.empty_pose_tokens"] = np.asarray(cam["empty_pose_tokens"])
-    sd.update(_dense(cam["embed_pose"], "camera_head.embed_pose"))
-    sd.update(_dense(cam["pose_modulation"], "camera_head.poseLN_modulation.1"))
-    sd.update(_dense(cam["pose_branch_fc1"], "camera_head.pose_branch.fc1"))
-    sd.update(_dense(cam["pose_branch_fc2"], "camera_head.pose_branch.fc2"))
-    for i, key in enumerate(_numbered(cam, "trunk_")):
-        sd.update(_vggt_block(cam[key], f"camera_head.trunk.{i}"))
-    sd.update(_dpt_head(p["depth_head"], "depth_head"))
-    sd.update(_dpt_head(p["point_head"], "point_head"))
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+def _flatten_dino_chunks(key: str) -> str:
+    """DINOv2's chunked block names (`blocks.<chunk>.<i>.`) -> flat (`blocks.<i>.`)."""
+    return re.sub(r"(patch_embed\.blocks)\.\d+\.(\d+)\.", r"\1.\2.", key)
+
+
+def convert_vggt_state_dict(sd) -> dict:
+    """A VGGT state dict (facebook/VGGT-1B layout, or the port's) -> the JAX
+    package's VGGT params {"params": ...} of numpy arrays, as
+    `mvtracker_tpu.convert.convert_vggt_state_dict` gives it: the inverse of
+    `vggt_params_from_flax`, DINOv2's chunked block names flattened first,
+    the parts JAX has no place for (`track_head.*`, the mask token, the
+    ResNet mean and std buffers) not read."""
+    return _to_flax({_flatten_dino_chunks(k): v for k, v in sd.items()}, _vggt)
 
 
 # Keys of a VGGT-1B checkpoint the model has no part for: the track head,
@@ -588,5 +839,5 @@ def load_vggt_checkpoint(path: str) -> dict[str, torch.Tensor]:
     for k, v in ckpt.items():
         if k.startswith(_VGGT_SKIPPED):
             continue
-        sd[re.sub(r"(patch_embed\.blocks)\.\d+\.(\d+)\.", r"\1.\2.", k)] = v.float()
+        sd[_flatten_dino_chunks(k)] = v.float()
     return sd
