@@ -113,9 +113,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     threshold (requests past the free slots) against the plain CPU path
     and the rigidity kNN on its twins, tracks with the depth z-test
     through `CachedPredictionPredictor` and `Evaluator`, K1 at k=21,
-    M=N=32768 timed against its bound, one full-size render of every slot
-    and its gradients against the plain CPU path (computed on a thread beside
-    the later phases, held before the kernels line); (d) Shape of Motion (10
+    M=N=32768 timed against its bound, one render of every slot at half
+    the frame size and its gradients against the plain CPU path (computed
+    beside the later phases, held before the kernels line); (d) Shape of Motion (10
     bases) with depth, mask and track supervision (iterations cut), its
     tracks, its K1 calls held against the exact plain kNN and timed;
 14. data parallelism, the sharded kNN and the geometric solvers, with the
@@ -177,7 +177,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     plain CPU path on the first 16 frames (TF32 off, exact kNN); (d)
     `scripts/train_droid_ft_torch.py`, 3 steps from (c)'s weights on that
     episode with one evaluation, K1, K2 and K3 counted;
-17. a JSON line for the kernels, then the result line.
+17. the measurement layer, each twin's `main` in this process at cut
+    repetition counts and full widths (`MEASURE_ARGS`): `bench_torch.py` in
+    three paths (the headline, serving mode, B=2 and the operation count;
+    the overfit and flagship train steps; the predictor's fps),
+    `scripts/eval_fps_torch.py` (one request), the per-stage split of
+    `profile_components_torch.py`, the reuse A/B of
+    `profile_knn_reuse_torch.py`, the folded stages of
+    `profile_batched_serving_torch.py` at B = 1, 2 (the fold check in fp32
+    with TF32 off first), the 6 ablations of `profile_torch_train_step.py`
+    at one step each, `profile_sharded_knn_torch.py` at one shape on 2 ranks
+    (both schedules equal to the exact search), `bench_droid_batch_torch.py`
+    on 2 episodes of 30 frames at 1 and 2 workers, and
+    `run_supervised_train_torch.sh` with one probe and a command that exits
+    0; every time and rate they return finite and positive and named with
+    the card, K1 and K2 launched on every path of the model, K3 where a
+    backward runs and on no other ablation, fewer K1 with reuse, no launch
+    on the DROID and supervisor paths;
+18. a JSON line for the kernels, then the result line.
+
+The slowest plain-CPU references (flagship-width forwards and requests on
+the host's cores and phase 13's render, phases 9 to 15) run in two spawned
+processes beside the card's work (`beside_cpu`) and are held when their
+results come back, the last before the kernels line.
 
 Needs CUDA; exits non-zero without it. Imports nothing of JAX.
 """
@@ -186,6 +208,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import io
 import json
 import logging
@@ -872,6 +895,71 @@ def to_device(scene, dev):
     return [torch.as_tensor(a, device=dev) for a in scene]
 
 
+# The slowest plain-CPU references (a flagship-width forward on the host's
+# cores takes 40 to 60 s, phase 13's render about 100 s) run in two spawned
+# processes beside the card's work (`beside_cpu`), so that the render does
+# not hold up the references queued after it; the checks that hold them run
+# when they are needed, the cross-phase ones from `LATER` before the kernels
+# line.
+_CPU_POOL = None
+LATER = []
+
+
+def _timed_call(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def beside_cpu(fn, *args):
+    """Start fn(*args) in a CPU-reference process; returns a function that
+    waits for (its result, the seconds it took there)."""
+    global _CPU_POOL
+    if _CPU_POOL is None:
+        import concurrent.futures
+        import multiprocessing
+
+        _CPU_POOL = concurrent.futures.ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
+    return _CPU_POOL.submit(_timed_call, fn, *args).result
+
+
+def render_with_grads(inputs, intr, w2c, size, target, device):
+    """Phase 13's render of a fitted state on `device` and the gradients of
+    a squared loss: ({"rgb", "alpha", "depth"}, the leaves' gradients)."""
+    import torch
+
+    from mvtracker_torch.ops import gsplat
+
+    device = torch.device(device)
+    leaves = [torch.as_tensor(a, device=device).requires_grad_(True) for a in inputs]
+    out = gsplat.render_gaussians(*leaves, torch.as_tensor(intr, device=device), torch.as_tensor(w2c, device=device),
+                                  size, chunk=1024)
+    loss = ((out.rgb[..., :4] - torch.as_tensor(target, device=device)).square().mean() + out.depth.mean()
+            + out.alpha.mean())
+    grads = torch.autograd.grad(loss, leaves)
+    return {key: getattr(out, key).detach() for key in ("rgb", "alpha", "depth")}, grads
+
+
+def cpu_forward(model_bytes, scene, iters):
+    """The plain CPU path of a pickled model on a numpy scene: its traj and
+    vis as CPU tensors."""
+    import pickle
+
+    import torch
+
+    model = pickle.loads(model_bytes)
+    with torch.no_grad():
+        out = model(*to_device(scene, torch.device("cpu")), iters=iters)
+    return out["traj"], out["vis"]
+
+
+def cpu_forward_beside(model, scene, iters):
+    """`cpu_forward` of a CPU copy of `model` (the card's), started beside."""
+    import pickle
+
+    return beside_cpu(cpu_forward, pickle.dumps(copy.deepcopy(model).cpu()), [np.asarray(a) for a in scene], iters)
+
+
 def phase_main_path(torch, MVTracker, random_state_dict, make_scene, knn_ops, corr_ops):
     """Phase 3: 3 flagship-width bf16 requests; returns launch totals."""
     dev = torch.device("cuda")
@@ -1332,26 +1420,44 @@ def request_args(dp):
     return [np.asarray(a, np.float32) for a in (dp.video, dp.videodepth, dp.query_points_3d, dp.intrs, dp.extrs)]
 
 
-def check_plain(model, predictor_kw, dps, outputs, limits, label) -> None:
-    """The card's outputs on scenes `dps` ({name: (traj, vis)} in `outputs`)
-    against the same predictor on a CPU copy of `model`."""
+def plain_outputs(model_bytes, predictor_kw, requests) -> list:
+    """The predictor around a pickled CPU model on each request: [(traj,
+    vis)] on the host."""
+    import pickle
+
     import torch
 
     from mvtracker_torch.evaluation.evaluator import to_host
     from mvtracker_torch.evaluation.predictor import EvaluationPredictor
 
-    cpu = EvaluationPredictor(copy.deepcopy(model).cpu(), device="cpu", **predictor_kw)
-    for dp in dps:
-        with torch.no_grad():
-            want = cpu(*request_args(dp))
-        failures = []
-        for field, got in zip(("traj", "vis"), outputs[dp.seq_name]):
-            gap = gap_stats(got, to_host(want[field]))
-            log(f"{label}, kernel path vs plain CPU path on {dp.seq_name}: {field} gap (median/p90/max) "
-                f"{fmt_gap(gap)} (limits {limits[field]})")
-            failures += [f"{dp.seq_name} {field} {q}" for q in beyond(gap, limits[field])]
-        if failures:
-            raise AssertionError(f"{label} kernel path vs plain: {failures}")
+    cpu = EvaluationPredictor(pickle.loads(model_bytes), device="cpu", **predictor_kw)
+    with torch.no_grad():
+        return [tuple(to_host(out[field]) for field in ("traj", "vis")) for out in (cpu(*r) for r in requests)]
+
+
+def check_plain(model, predictor_kw, dps, outputs, limits, label) -> None:
+    """The card's outputs on scenes `dps` ({name: (traj, vis)} in `outputs`)
+    against the same predictor on a CPU copy of `model`, computed beside the
+    later phases and held from `LATER`."""
+    import pickle
+
+    wait = beside_cpu(plain_outputs, pickle.dumps(copy.deepcopy(model).cpu()), predictor_kw,
+                      [request_args(dp) for dp in dps])
+    names = [dp.seq_name for dp in dps]
+
+    def check():
+        wants, cpu_s = wait()
+        for name, want in zip(names, wants):
+            failures = []
+            for field, got, plain in zip(("traj", "vis"), outputs[name], want):
+                gap = gap_stats(got, plain)
+                log(f"{label}, kernel path vs plain CPU path on {name}: {field} gap (median/p90/max) "
+                    f"{fmt_gap(gap)} (limits {limits[field]}; {cpu_s:.1f} s on the CPU beside the later phases)")
+                failures += [f"{name} {field} {q}" for q in beyond(gap, limits[field])]
+            if failures:
+                raise AssertionError(f"{label} kernel path vs plain: {failures}")
+
+    LATER.append(check)
 
 
 def phase_evaluation(torch, smi, knn_ops, corr_ops, release):
@@ -1808,17 +1914,24 @@ def phase_options(torch, smi, knn_ops, corr_ops, release):
     model = requests.pop("mvtracker_ptv3")
     del requests
     model.knn_backend = "exact"
-    t0 = time.perf_counter()
     with fp32_precision(exact=True):
-        got = model(*to_device(scene, dev), iters=ITERS)
-        want_out = copy.deepcopy(model).cpu()(*to_device(scene, torch.device("cpu")), iters=ITERS)
-    for key, (tmax, tmed) in (("traj", (E2E_TRAJ_MAX, E2E_TRAJ_MEDIAN)), ("vis", (E2E_VIS_MAX, E2E_VIS_MEDIAN))):
-        gap = (got[key].cpu() - want_out[key]).abs()
-        log(f"options (d) mvtracker_ptv3 fp32 exact at the flagship shape, kernel path (K5) vs plain CPU path: "
-            f"{key} max gap {float(gap.max()):.3e} (limit {tmax}), median {float(gap.median()):.3e} (limit {tmed}); "
-            f"{time.perf_counter() - t0:.1f} s with the CPU's forward")
-        if not (float(gap.max()) <= tmax and float(gap.median()) <= tmed):
-            raise AssertionError(f"mvtracker_ptv3 kernel path vs plain: {key} gap too large")
+        got = {k: v.cpu() for k, v in model(*to_device(scene, dev), iters=ITERS).items() if k in ("traj", "vis")}
+    ptv3_cpu = cpu_forward_beside(model, scene, ITERS)
+
+    def check_ptv3():
+        t0 = time.perf_counter()
+        (traj, vis), cpu_s = ptv3_cpu()
+        for key, want, (tmax, tmed) in (("traj", traj, (E2E_TRAJ_MAX, E2E_TRAJ_MEDIAN)),
+                                        ("vis", vis, (E2E_VIS_MAX, E2E_VIS_MEDIAN))):
+            gap = (got[key] - want).abs()
+            log(f"options (d) mvtracker_ptv3 fp32 exact at the flagship shape, kernel path (K5) vs plain CPU path: "
+                f"{key} max gap {float(gap.max()):.3e} (limit {tmax}), median {float(gap.median()):.3e} (limit "
+                f"{tmed}); the CPU's forward {cpu_s:.1f} s beside the later phases, {time.perf_counter() - t0:.1f} s "
+                "waited for")
+            if not (float(gap.max()) <= tmax and float(gap.median()) <= tmed):
+                raise AssertionError(f"mvtracker_ptv3 kernel path vs plain: {key} gap too large")
+
+    LATER.append(check_ptv3)
     del model
 
     # (e) cli/serve.py's server on 127.0.0.1 with the checkpoint of (d)
@@ -2489,17 +2602,21 @@ def phase_other_families(torch, smi, knn_ops, corr_ops):
     del bf16
     with fp32_precision(exact=True):
         got = model(*args, iters=ITERS)
-        t0 = time.perf_counter()
-        want = copy.deepcopy(model).cpu()(*to_device(scenes[0], torch.device("cpu")), iters=ITERS)
-        cpu_s = time.perf_counter() - t0
+    spat_cpu = cpu_forward_beside(model, scenes[0], ITERS)
     log(f"other families (a) spatracker_multiview bf16, scene {FAMILY_SEEDS[0]}: ms {[round(x, 2) for x in times]} "
         f"(first, then warm); traj gap to the fp32 request (median/p90/max) "
         f"{fmt_gap(gap_stats(out_bf16['traj'].cpu(), got['traj'].cpu()))}; launches {paths['spatracker_bf16']} "
         f"[{smi}]")
-    check_gaps({"spatracker": (got["traj"].cpu(), got["vis"].cpu())},
-               {"spatracker": (want["traj"], want["vis"])}, SPAT_PLAIN_LIMITS,
-               f"other families (a) spatracker fp32 (TF32 off) card vs plain CPU path ({cpu_s:.1f} s on the CPU) [{smi}]")
-    del model, got, want, out_bf16
+    spat_card = (got["traj"].cpu(), got["vis"].cpu())
+
+    def check_spatracker():
+        want, cpu_s = spat_cpu()
+        check_gaps({"spatracker": spat_card}, {"spatracker": want}, SPAT_PLAIN_LIMITS,
+                   f"other families (a) spatracker fp32 (TF32 off) card vs plain CPU path ({cpu_s:.1f} s on the CPU "
+                   f"beside the later phases) [{smi}]")
+
+    LATER.append(check_spatracker)
+    del model, got, out_bf16
     torch.cuda.empty_cache()
 
     exp = os.path.join(tmp.name, "spatracker")
@@ -2669,16 +2786,24 @@ SOM_POINTS = 16384  # foreground + background gaussians, drawn from frame 0's de
 # statistics, with the threshold lowered so that the requests outnumber the
 # free slots by this factor (clones, splits and dropped requests all occur).
 DENSIFY_OVERBOOK = 1.25
-# The full-size render (every slot of the fitted state at t=0, the free ones
-# at opacity logit -1e9 as `train_segment` renders them, at 256^2) and its
-# gradients, card vs plain CPU (TF32 off): rgb, alpha, depth max |gap|;
-# each gradient leaf's max |gap| over its largest |value|, of a squared loss.
-# The CPU controls (chunk 1024 against 512, `scripts/control_torch_last_models.py`
-# on the card host): a seeded cloud moved the outputs by up to 2.1e-6 and the
-# gradients by 3.6e-7; on this fitted state the squared loss's gradients
-# moved by 2.2e-7, the fit's own L1 loss's by 2.5e-2 (colours), because 267
-# residuals changed sign at |x|'s kink. So the check uses the squared loss.
+# The render (every slot of the fitted state at t=0, the free ones at
+# opacity logit -1e9 as `train_segment` renders them, at 128^2,
+# `RENDER_SHRINK`) and its gradients, card vs plain CPU (TF32 off): rgb,
+# alpha, depth max |gap|; each gradient leaf's max |gap| over its largest
+# |value|, of a squared loss. The CPU controls at 128^2 (chunk 1024 against
+# 512, `scripts/control_torch_last_models.py --parts render,render_fit` on
+# the card host): a seeded cloud moved rgb / alpha / depth by 6.0e-7 /
+# 1.2e-7 / 2.1e-6 and the gradients by 2.3e-7; this fitted state moved them
+# by 3.6e-7 / 1.2e-7 / 2.9e-6, the squared loss's gradients by 2.7e-7 and
+# the fit's own L1 loss's by 4.9e-2 (colours), because 82 residuals changed
+# sign at |x|'s kink. So the check uses the squared loss. The card against
+# the CPU read 4.8e-7 / 2.4e-7 / 3.3e-6 and gradients up to 1.8e-6. (At
+# 256^2, where the limits were set: 2.1e-6, 3.6e-7 and 2.2e-7.)
 RENDER_ATOL, RENDER_GRAD_RTOL = 1e-5, 1e-4
+# The card-vs-CPU render is made at the frame size over RENDER_SHRINK (128^2,
+# the intrinsics and the target scaled to it): at 256^2 its CPU reference
+# took 132 to 326 s of the host's cores beside phases 14 to 17 and slowed them.
+RENDER_SHRINK = 2
 
 
 def cut_datapoint(dp, t):
@@ -2854,7 +2979,6 @@ def phase_last_models(torch, smi, knn_ops, corr_ops):
     from mvtracker_torch.models import shape_of_motion as som
     from mvtracker_torch.models import vggt as vggt_lib
     from mvtracker_torch.models.mvtracker import MVTracker
-    from mvtracker_torch.ops import gsplat
 
     dev = torch.device("cuda")
     counters = {"knn": knn_ops.knn_cuda, "knn_tiled": knn_ops.knn_tiled_cuda, "knn_exact": knn_ops.knn_exact_cuda,
@@ -3097,51 +3221,33 @@ def phase_last_models(torch, smi, knn_ops, corr_ops):
     # the card and the CPU round to either side of the target).
     inputs, target = fit_render_inputs(fitted, video01, seg)
 
-    def render_grads(device):
-        leaves = [torch.as_tensor(a, device=device).requires_grad_(True) for a in inputs]
-        out = gsplat.render_gaussians(*leaves, torch.as_tensor(fit_dp.intrs[0, 0], device=device),
-                                      torch.as_tensor(fit_dp.extrs[0, 0], device=device), (W, H), chunk=1024)
-        loss = ((out.rgb[..., :4] - torch.as_tensor(target, device=device)).square().mean() + out.depth.mean()
-                + out.alpha.mean())
-        return out, torch.autograd.grad(loss, leaves)
-
+    intr = fit_dp.intrs[0, 0].copy()
+    intr[:2] /= RENDER_SHRINK
+    render_args = (inputs, intr, fit_dp.extrs[0, 0], (W // RENDER_SHRINK, H // RENDER_SHRINK),
+                   target[::RENDER_SHRINK, ::RENDER_SHRINK])
     with fp32_precision(exact=True):
-        out_g, grads_g = render_grads(dev)
-    # The plain CPU path takes minutes on the host's cores (PERF.md, §5):
-    # it runs on a thread beside the script's later card work, and
-    # `check_render` holds it against the card's render once it is done.
-    cpu_ref = {}
-
-    def cpu_render():
-        t1 = time.perf_counter()
-        try:
-            cpu_ref["out"] = render_grads(torch.device("cpu"))
-        except BaseException as e:  # raised again by check_render
-            cpu_ref["error"] = e
-        cpu_ref["s"] = time.perf_counter() - t1
-
-    cpu_thread = threading.Thread(target=cpu_render, name="render-cpu-reference", daemon=True)
-    cpu_thread.start()
+        out_g, grads_g = render_with_grads(*render_args, dev)
+    # The plain CPU path takes minutes on the host's cores (PERF.md, §5).
+    render_cpu = beside_cpu(render_with_grads, *render_args, "cpu")
     n_active = int(fitted["active"].sum())
 
     def check_render():
         t1 = time.perf_counter()
-        cpu_thread.join()
-        if "error" in cpu_ref:
-            raise cpu_ref["error"]
-        out_c, grads_c = cpu_ref["out"]
-        for key in ("rgb", "alpha", "depth"):
-            gap = float((getattr(out_g, key).detach().cpu() - getattr(out_c, key).detach()).abs().max())
-            if not gap <= RENDER_ATOL:
-                raise AssertionError(f"render {key}: card vs CPU gap {gap:.3e}")
+        (out_c, grads_c), cpu_s = render_cpu()
+        gaps = {key: float((out_g[key].cpu() - out_c[key]).abs().max()) for key in out_g}
         rel = [rel_gap(a.cpu(), b)[0] for a, b in zip(grads_g, grads_c)]
-        log(f"last models (c) render of all {d3cfg.capacity} slots ({n_active} active) at {W}x{H} with "
-            f"its gradients, fp32 (TF32 off), card vs plain CPU ({cpu_ref['s']:.1f} s on the CPU beside the later "
-            f"phases, {time.perf_counter() - t1:.1f} s waited for): rgb/alpha/depth within "
-            f"{RENDER_ATOL}; gradient relative gaps (means, quats, scales, opacities, colours) "
-            f"{[f'{r:.2e}' for r in rel]} (limit {RENDER_GRAD_RTOL}) [{smi}]")
+        log(f"last models (c) render of all {d3cfg.capacity} slots ({n_active} active) at {W // RENDER_SHRINK}x"
+            f"{H // RENDER_SHRINK} with its gradients, fp32 (TF32 off), card vs plain CPU ({cpu_s:.1f} s on the CPU "
+            f"beside the later phases, {time.perf_counter() - t1:.1f} s waited for): rgb/alpha/depth max gap "
+            f"{[f'{gaps[k]:.2e}' for k in ('rgb', 'alpha', 'depth')]} (limit {RENDER_ATOL}); gradient relative gaps "
+            f"(means, quats, scales, opacities, colours) {[f'{r:.2e}' for r in rel]} (limit {RENDER_GRAD_RTOL}) "
+            f"[{smi}]")
+        if not max(gaps.values()) <= RENDER_ATOL:
+            raise AssertionError(f"render: card vs CPU gaps {gaps}")
         if max(rel) > RENDER_GRAD_RTOL:
             raise AssertionError(f"render gradients: card vs CPU {rel}")
+
+    LATER.append(check_render)
 
     # (d) Shape of Motion at the JAX widths on the same frames, with depth,
     # mask and track supervision.
@@ -3188,14 +3294,18 @@ def phase_last_models(torch, smi, knn_ops, corr_ops):
     model.knn_backend = "exact"
     with fp32_precision(exact=True):
         got = model(*to_device(request, dev), iters=ITERS)
-        t1 = time.perf_counter()
-        want = copy.deepcopy(model).cpu()(*to_device(request, torch.device("cpu")), iters=ITERS)
-        cpu_s = time.perf_counter() - t1
-    check_gaps({"generic": (got["traj"].cpu(), got["vis"].cpu())}, {"generic": (want["traj"], want["vis"])},
-               GENERIC_PLAIN_LIMITS, f"last models (b) generic scene, fp32 (TF32 off, exact kNN), card vs plain CPU "
-                                     f"({cpu_s:.1f} s on the CPU) [{smi}]")
+    generic_cpu = cpu_forward_beside(model, request, ITERS)
+    generic_card = (got["traj"].cpu(), got["vis"].cpu())
+
+    def check_generic():
+        want, cpu_s = generic_cpu()
+        check_gaps({"generic": generic_card}, {"generic": want}, GENERIC_PLAIN_LIMITS,
+                   f"last models (b) generic scene, fp32 (TF32 off, exact kNN), card vs plain CPU ({cpu_s:.1f} s on "
+                   f"the CPU beside the later phases) [{smi}]")
+
+    LATER.append(check_generic)
     tmp.cleanup()
-    return paths, free, check_render
+    return paths, free
 
 
 # ---------------------------------------------------------------------------
@@ -3260,11 +3370,10 @@ def check_built() -> None:
 
 
 def counters():
-    from mvtracker_torch.ops import corr as corr_ops
-    from mvtracker_torch.ops import knn as knn_ops
+    """{kernel: its wrapper}, each wrapper holding its `launches`."""
+    from scripts.timing_torch import kernel_counters
 
-    return {"knn": knn_ops.knn_cuda, "knn_tiled": knn_ops.knn_tiled_cuda, "knn_exact": knn_ops.knn_exact_cuda,
-            "corr": corr_ops.corr_select_cuda, "corr_bwd": corr_ops.corr_select_backward_cuda}
+    return kernel_counters()
 
 
 def reset_counts() -> None:
@@ -4059,6 +4168,22 @@ def start_droid_episode(spec=None):
     return proc, tmp, time.perf_counter()
 
 
+def droid_plain_request(argv):
+    """`cli.droid track`'s fp32 request (TF32 off, exact kNN) on the device
+    `argv` names: (traj, vis) on the host."""
+    import torch
+
+    from mvtracker_torch.cli import droid as droid_cli
+    from mvtracker_torch.device import fp32_precision
+    from mvtracker_torch.evaluation.evaluator import to_host
+
+    dp, queries, pred = droid_cli.prepare_track(droid_cli.build_parser().parse_args(argv))
+    pred.model.knn_backend = "exact"
+    with torch.no_grad(), fp32_precision(True):
+        res = pred(dp.video, dp.videodepth, queries, dp.intrs, dp.extrs)
+    return to_host(res["traj"]), to_host(res["vis"])
+
+
 def codec_depth(rng, t, h, w):
     """Depth frames [t, h, w] in meters as a ZED stream gives them: a slanted
     table with noise, a hole (no depth) and a far band near 65 m."""
@@ -4081,7 +4206,6 @@ def phase_droid(torch, smi, job):
     from mvtracker_torch.cli import train as cli_train
     from mvtracker_torch.datasets import droid as droid_data
     from mvtracker_torch.datasets import hdf5
-    from mvtracker_torch.device import fp32_precision
     from mvtracker_torch.droid import depth_video, reproject
     from mvtracker_torch.droid.refine import refine_episode_wrist_z
     from mvtracker_torch.evaluation.evaluator import to_host
@@ -4170,6 +4294,11 @@ def phase_droid(torch, smi, job):
     data["wrist"] = data["wrist"].copy()
     data["wrist"][:, :3, 3] -= DROID_Z_TRUE * data["wrist"][:, :3, 2]
     np.savez_compressed(os.path.join(biased, "extrinsics.npz"), **data)
+    # The CPU's refine and (d)'s fp32 CPU request run beside the card's parts.
+    refine_cpu = beside_cpu(functools.partial(refine_episode_wrist_z, device="cpu"), biased)
+    plain_argv = ["track", "--episode", ep, "--out", str(root / "plain.npz"), "--chunk_frames", str(DROID_CHUNK),
+                  "--max_frames", str(DROID_PLAIN_FRAMES), "--dtype", "float32"]
+    track_cpu = beside_cpu(droid_plain_request, plain_argv + ["--device", "cpu"])
     reset_counts()
     out = io.StringIO()
     t0 = time.perf_counter()
@@ -4178,9 +4307,7 @@ def phase_droid(torch, smi, job):
     refine_s = time.perf_counter() - t0
     paths["droid_refine"] = {"knn": read_counts().get("knn", 0)}
     card = json.loads(out.getvalue().strip().splitlines()[-1])
-    t0 = time.perf_counter()
-    cpu = refine_episode_wrist_z(biased, device="cpu")
-    cpu_s = time.perf_counter() - t0
+    cpu, cpu_s = refine_cpu()
     z_err = abs(card["wrist_z_offset_m"] - DROID_Z_TRUE)
     z_gap = abs(card["wrist_z_offset_m"] - cpu["wrist_z_offset_m"])
     log(f"droid (c) cli.droid refine, wrist biased {DROID_Z_TRUE} m: card {card['wrist_z_offset_m']:.6f} m "
@@ -4235,24 +4362,13 @@ def phase_droid(torch, smi, job):
     log(f"droid (d) track, warm gripper requests ({len(queries)} queries, {v} x {t} frames of {w}x{h}, 3 segments): "
         f"{[round(x, 2) for x in times]} ms [{smi}]")
     del pred, dp
-    # One fp32 request (TF32 off, exact kNN) on the card against the plain CPU path.
-    outs = {}
-    for device in (DROID_DEVICE, "cpu"):
-        args = droid_cli.build_parser().parse_args(
-            ["track", "--episode", ep, "--out", str(root / "plain.npz"), "--chunk_frames", str(DROID_CHUNK),
-             "--max_frames", str(DROID_PLAIN_FRAMES), "--dtype", "float32", "--device", device])
-        dp, queries, pred = droid_cli.prepare_track(args)
-        pred.model.knn_backend = "exact"
-        t0 = time.perf_counter()
-        with torch.no_grad(), fp32_precision(True):
-            res = pred(dp.video, dp.videodepth, queries, dp.intrs, dp.extrs)
-        outs[device] = (to_host(res["traj"]), to_host(res["vis"]))
-        if device == "cpu":
-            cpu_s = time.perf_counter() - t0
-        del pred
-    check_gaps({"droid": outs[DROID_DEVICE]}, {"droid": outs["cpu"]}, DROID_PLAIN_LIMITS,
+    # One fp32 request (TF32 off, exact kNN) on the card against the plain
+    # CPU path (started beside the card's parts above).
+    card_plain = droid_plain_request(plain_argv + ["--device", DROID_DEVICE])
+    cpu_plain, cpu_s = track_cpu()
+    check_gaps({"droid": card_plain}, {"droid": cpu_plain}, DROID_PLAIN_LIMITS,
                f"droid (d) track fp32 (TF32 off, exact kNN), {DROID_PLAIN_FRAMES} frames, card vs plain CPU "
-               f"({cpu_s:.1f} s on the CPU) [{smi}]")
+               f"({cpu_s:.1f} s on the CPU beside the card's parts) [{smi}]")
     torch.cuda.empty_cache()
 
     # (e) cli.droid reproject: depth videos through the FFV1 writer.
@@ -4613,6 +4729,174 @@ def phase_slice(torch, smi, job, release):
     return paths
 
 
+# Phase 17: the measurement layer, every twin's `main` in-process at cut
+# repetition counts, widths as their full settings (the card's numbers at the
+# full settings come from the twins run alone, `PERF.md` §5).
+MEASURE_ARGS = {
+    "bench_serving": ["--parts", "serving", "--warm", "2", "--reps", "3", "--batches", "2", "--batch_warm", "1",
+                      "--batch_reps", "1"],
+    "bench_train": ["--parts", "train", "--train_warm", "1", "--train_reps", "1", "--flagship_train_reps", "1"],
+    "bench_eval_fps": ["--parts", "eval", "--eval_reps", "1"],
+    "eval_fps": ["--warm", "0", "--reps", "1"],
+    "components": ["--reps", "5", "--full_reps", "5", "--warm", "1"],
+    "knn_reuse": ["--warm", "1", "--reps", "1"],
+    "batched_stages": ["--batches", "1", "2", "--reps", "5", "--warm", "1", "--full_warm", "1", "--full_reps", "1"],
+    "train_ablations": ["--ablations", "--warm", "0", "--reps", "1", "--rounds", "1"],
+    "sharded_knn_profile": ["--ranks", "2", "--points", "16384", "--queries", "256"],
+    "droid_batch": ["--episodes", "2", "--frames", "30", "--workers", "1", "2"],
+}
+
+
+def numbers(tree, path=""):
+    """(path, value) of every int, float or None leaf of a twin's report."""
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            yield from numbers(value, f"{path}/{key}")
+    elif isinstance(tree, (list, tuple)):
+        for i, value in enumerate(tree):
+            yield from numbers(value, f"{path}[{i}]")
+    elif tree is None or (isinstance(tree, (int, float)) and not isinstance(tree, bool)):
+        yield path, tree
+
+
+def check_measured(name, report, card, timed) -> None:
+    """A twin's report on the card: the device key names the card, and every
+    time and rate it returns (the leaves named in `timed`) is a finite
+    positive number."""
+    if report.get("device") != card:
+        raise AssertionError(f"{name}: device {report.get('device')!r}, the card is {card!r}")
+    values = [(path, v) for path, v in numbers(report) if any(path.endswith(key) for key in timed)]
+    missing = [key for key in timed if not any(path.endswith(key) for path, _ in values)]
+    bad = [(path, v) for path, v in values if v is None or not (np.isfinite(v) and v > 0)]
+    if missing or bad:
+        raise AssertionError(f"{name}: times or rates missing {missing} or not finite and positive {bad}")
+
+
+def phase_measurement(torch, smi):
+    """Phase 17: each twin of the JAX package's measurement scripts driven
+    in-process (`MEASURE_ARGS`), the counts at 0 before each path; the
+    supervisor in a process of its own. Returns ({path: launch totals} of
+    the model's paths, {path: counts} of the paths that launch nothing)."""
+    sys.path.insert(0, str(ROOT))
+    import bench_torch
+    from scripts import bench_droid_batch_torch as droid_batch
+    from scripts import eval_fps_torch
+    from scripts import profile_batched_serving_torch as batched
+    from scripts import profile_components_torch as components
+    from scripts import profile_knn_reuse_torch as reuse
+    from scripts import profile_sharded_knn_torch as sharded
+    from scripts import profile_torch_train_step as train_step
+    from scripts import timing_torch
+
+    card = torch.cuda.get_device_name(0)
+    twins = {"bench_serving": bench_torch, "bench_train": bench_torch, "bench_eval_fps": bench_torch,
+             "eval_fps": eval_fps_torch, "components": components, "knn_reuse": reuse,
+             "batched_stages": batched, "train_ablations": train_step, "sharded_knn_profile": sharded,
+             "droid_batch": droid_batch}
+    # The times and rates each report must hold, by the end of their path.
+    timed = {
+        "bench_serving": ("/value", "/fwd_ms", "/fwd_ms_median", "/fwd_ms_serving", "/value_serving",
+                          "/achieved_tflops_s", "/mfu", "/value_batched2", "/fwd_tflops"),
+        "bench_train": ("/train_step_ms", "/train_steps_per_s", "/train_step_ms_flagship"),
+        "bench_eval_fps": ("/eval_fps_with_support_grids",),
+        "eval_fps": ("/ms_per_request", "/fps"),
+        "components": ("/ms", "/share", "/accounted_ms"),
+        "knn_reuse": ("/exact/ms", "/reuse/ms", "/speedup"),
+        "batched_stages": ("/full_fwd", "/encoder", "/knn_window", "/corr_window", "/updateformer"),
+        "train_ablations": ("/ms",),
+        "sharded_knn_profile": ("/gather_ms", "/ring_ms"),
+        "droid_batch": ("/wall_s", "/episodes_per_hour"),
+    }
+    if timing_torch.bf16_peak(card) is None:  # no peak for this card: `mfu` is None
+        timed["bench_serving"] = tuple(key for key in timed["bench_serving"] if key != "/mfu")
+    paths, free, reports, seconds = {}, {}, {}, {}
+    for path, args in MEASURE_ARGS.items():
+        reset_counts()
+        # One call of the twin's main, timed on the host up to a synchronize;
+        # what it prints (its own JSON lines too) is summarised below instead.
+        argv = [*args, "--device", "cuda"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            times = timing_torch.host_ms(lambda: reports.update({path: twins[path].main(argv)}), "cuda", 1)
+        seconds[path] = times[0] / 1e3 if times else float("nan")
+        counts = {name: fn.launches for name, fn in counters().items()}
+        check_measured(path, reports[path], card, timed[path])
+        if path == "sharded_knn_profile":  # the ranks' launches, counted in their processes
+            counts = dict.fromkeys(counts, 0)
+            for row in reports[path]["rows"]:
+                for launches in row["gather_launches"] + row["ring_launches"]:
+                    for name, n in launches.items():
+                        counts[name] += n
+        if path == "droid_batch":
+            free[path] = counts
+        else:
+            paths[path] = {name: n for name, n in counts.items() if n}
+        log(f"measure {path}: {seconds[path]:.1f} s, launches {counts} [{smi}]")
+
+    # The supervisor: one probe of the card, then a command that exits 0.
+    reset_counts()
+    t0 = time.perf_counter()
+    sup = subprocess.run(["bash", str(ROOT / "scripts" / "run_supervised_train_torch.sh"), sys.executable, "-c",
+                          "print('trained')"], capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, SETTLE_S="0", PROBE_SLEEP_S="0", PROBE_TRIES="1"))
+    seconds["supervisor"] = time.perf_counter() - t0
+    free["supervisor"] = {name: fn.launches for name, fn in counters().items()}
+    log(f"measure supervisor: rc {sup.returncode}, {seconds['supervisor']:.1f} s; stdout {sup.stdout.strip()!r}; "
+        f"stderr {sup.stderr.strip()!r} [{smi}]")
+    if not (sup.returncode == 0 and sup.stdout.count("card ok:") == 1 and "trained" in sup.stdout
+            and "attempt 1:" in sup.stderr and "attempt 2" not in sup.stderr):
+        raise AssertionError(f"supervisor: rc {sup.returncode}, stdout {sup.stdout!r}, stderr {sup.stderr!r}")
+    for path, counts in free.items():
+        if any(counts.values()):
+            raise AssertionError(f"the {path} path launched {counts}; it runs no kernel")
+
+    # Kernels by path: K1 and K2 on every path of the model, K3 where a
+    # backward runs; per ablation from the twin's own counts.
+    for path, counts in paths.items():
+        want = ("knn",) if path == "sharded_knn_profile" else ("knn", "corr")
+        want += ("corr_bwd",) if path in ("bench_train", "train_ablations") else ()
+        idle = [key for key in want if not counts.get(key)]
+        if idle:
+            raise AssertionError(f"the {path} path launched no {idle} kernel: {counts}")
+    variants = {name: row for name, row in reports["train_ablations"]["variants"].items() if "failed" not in row}
+    for name, row in variants.items():
+        k3 = row["launches"].get("corr_bwd", 0)
+        if not (row["launches"].get("knn") and row["launches"].get("corr")) or (
+                (k3 > 0) != (name not in ("no_corr_bwd", "fwd_loss_only"))):
+            raise AssertionError(f"train ablation {name}: launches a step {row['launches']}")
+    bench_train = reports["bench_train"]["launches"]
+    if not (bench_train["train"]["corr_bwd"] and bench_train["flagship_train"]["corr_bwd"]):
+        raise AssertionError(f"bench_train: launches {bench_train}")
+    knn_reuse = reports["knn_reuse"]
+    if not knn_reuse["reuse"]["launches"]["knn"] < knn_reuse["exact"]["launches"]["knn"]:
+        raise AssertionError(f"knn_reuse: K1 a forward, exact {knn_reuse['exact']['launches']}, reuse "
+                             f"{knn_reuse['reuse']['launches']}")
+    folds = reports["batched_stages"]["fold_check"]
+    if batched.fold_failures(folds):
+        raise AssertionError(f"batched_stages: folds {batched.fold_failures(folds)} differ: {folds}")
+    if not reports["sharded_knn_profile"]["bit_equal_to_exact"]:
+        raise AssertionError("sharded_knn_profile: the schedules differ from the exact search")
+
+    bench = {**reports["bench_serving"], **{k: v for k, v in reports["bench_train"].items() if v is not None},
+             **{k: v for k, v in reports["bench_eval_fps"].items() if v is not None}}
+    log(f"measure bench_torch (cut): value {bench['value']:.1f} point-frames/s, fwd_ms {bench['fwd_ms']:.2f} (median "
+        f"{bench['fwd_ms_median']:.2f}), serving {bench['fwd_ms_serving']:.2f} ms, value_batched2 "
+        f"{bench['value_batched2']:.1f}, fwd_tflops {bench['fwd_tflops']:.4f} ({bench['fwd_tflops_parts']}), mfu "
+        f"{bench['mfu']}, train_step_ms {bench['train_step_ms']:.2f}, flagship {bench['train_step_ms_flagship']:.2f}, "
+        f"eval fps {bench['eval_fps_with_support_grids']:.1f} [{bench['device']}, {bench['power_limit']}]")
+    log("measure components (cut): " + ", ".join(f"{name} {row['total_ms']:.2f} ms ({row['share']:.3f})"
+                                                  for name, row in reports["components"]["stages"].items()))
+    log(f"measure knn_reuse (cut): exact {knn_reuse['exact']['ms']:.2f} ms, reuse {knn_reuse['reuse']['ms']:.2f} ms, "
+        f"speed-up {knn_reuse['speedup']:.3f}, divergence {knn_reuse['divergence']}, K1 a forward "
+        f"{knn_reuse['exact']['launches']['knn']} and {knn_reuse['reuse']['launches']['knn']}")
+    log(f"measure batched_stages (cut): r(2) {reports['batched_stages']['scaling_ratio'][2]}, folds "
+        f"{ {k: (g['rel'], g['bit_equal']) for k, g in folds.items()} }")
+    log("measure train_ablations (cut, 1 step each): " + ", ".join(
+        f"{name} failed ({row['failed']})" if "failed" in row else
+        f"{name} {row['ms']:.1f} ms, K3 {row['launches'].get('corr_bwd', 0):.0f}"
+        for name, row in reports["train_ablations"]["variants"].items()))
+    return paths, free
+
+
 def main() -> int:
     import argparse
 
@@ -4621,7 +4905,7 @@ def main() -> int:
                         help="release checkpoint (flax msgpack) for phases 9 and 10, held against the golden outputs, "
                              "and the weights of phase 16's north star")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases to run (of 2 to 16; 8 runs with 7) for a quicker check of one "
+                        help="comma-separated phases to run (of 2 to 17; 8 runs with 7) for a quicker check of one "
                              "part; such a run prints no kernels line and no result line")
     cli = parser.parse_args()
     only = None if cli.phases is None else {int(x) for x in cli.phases.split(",")}
@@ -4715,7 +4999,7 @@ def main() -> int:
                 raise AssertionError(f"the {path} path launched {counts}; it has no kNN or correlation stage")
     if wanted(13):
         t0 = time.perf_counter()
-        last, last_free, check_render = phase_last_models(torch, smi, knn_ops, corr_ops)
+        last, last_free = phase_last_models(torch, smi, knn_ops, corr_ops)
         log(f"phase 13 (VGGT-1B, generic scene to tracker, Dynamic 3DGS, Shape of Motion) took "
             f"{time.perf_counter() - t0:.1f} s [{smi}]")
         for path, counts in last_free.items():
@@ -4742,9 +5026,15 @@ def main() -> int:
         t0 = time.perf_counter()
         slice_paths = phase_slice(torch, smi, north_job, cli.release)
         took(16, t0, "convert and export round trips, the demo, the DROID north star and its fine-tuning")
-    if wanted(13):
-        check_render()  # phase 13's render against its CPU reference, computed beside phases 14 to 16
-    log(f"phases 2 to 16 took {time.perf_counter() - script_t0:.1f} s [{smi}]")
+    if wanted(17):
+        t0 = time.perf_counter()
+        measurement, measurement_free = phase_measurement(torch, smi)
+        took(17, t0, "the measurement layer: bench_torch.py and the profiling, DROID-batch and supervisor twins")
+    for check in LATER:  # the CPU references computed beside the later phases
+        check()
+    if _CPU_POOL is not None:
+        _CPU_POOL.shutdown()
+    log(f"phases 2 to 17 took {time.perf_counter() - script_t0:.1f} s [{smi}]")
     if only is not None:
         log(f"partial run of phases {sorted(only)} passed; no kernels line and no result line")
         return 0
@@ -4752,7 +5042,8 @@ def main() -> int:
     # Each path was driven with the counts at 0 just before it; every kernel
     # of a path must have been launched in that path's run.
     paths = {"serving": serving, "training": training, "large_cloud": large, "direct_knn": direct,
-             "evaluation": evaluation, **options, **data_path, **last, **parallel, **droid, **slice_paths}
+             "evaluation": evaluation, **options, **data_path, **last, **parallel, **droid, **slice_paths,
+             **measurement}
     for path, counts in paths.items():
         idle = [key for key, count in counts.items() if count == 0]
         if idle:
@@ -4778,7 +5069,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": sum(counts.get(key, 0) for counts in paths.values()),
             "launches_by_path": {**{path: counts[key] for path, counts in paths.items() if key in counts},
-                                 **{path: counts[key] for path, counts in {**families, **last_free}.items()}},
+                                 **{path: counts[key] for path, counts in
+                                    {**families, **last_free, **measurement_free}.items()}},
             "max_abs_err": st["err"],
             "ms": st["ms"],
             "plain_ms": st["plain_ms"],
@@ -4801,7 +5093,13 @@ def main() -> int:
         "the mask-guided depth requests of cli.droid track; droid_train: 3 cli.train steps on the episode) and of "
         "phase 16 (demo: one cli.demo request in 2 chained segments; north_star: the 2 model requests of "
         "eval_droid_track_error_torch.py on one episode; droid_finetune: 3 train_droid_ft_torch.py steps and its "
-        "one evaluation)")
+        "one evaluation) and of phase 17, each twin's main at its cut settings (bench_serving: bench_torch.py's "
+        "headline, serving mode and B=2, 26 forwards with the operation count's; bench_train: 3 overfit and 3 "
+        "flagship train steps; bench_eval_fps: 2 predictor requests; eval_fps: 1 request of eval_fps_torch.py; "
+        "components: 6 calls of each stage and of the forward; knn_reuse: 4 forwards a path; batched_stages: "
+        "the fold check and B=1, 2; train_ablations: one step of each of 6 variants; sharded_knn_profile: both "
+        "schedules, 3 calls each on 2 ranks, summed over the ranks; droid_batch, supervisor: no kernel, 0 and "
+        "checked)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

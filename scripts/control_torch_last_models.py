@@ -16,17 +16,19 @@ orders than the CPU):
   x 256^2, the frames rounded to uint8 as the PNGs hold them; 256 uniform
   queries at frame 0 and 64 k-means at frame 12): every query moved by
   1e-6; median / p90 / max of |gap| in traj and vis;
-- the gaussian renderer at phase 13's size (32768 gaussians, 256^2, chunk
-  1024) on a seeded cloud: the chunk of 1024 against 512 (another order of
-  the per-pixel sums), rgb / alpha / depth max |gap| and each gradient
-  leaf's max |gap| over its largest |value|;
+- the gaussian renderer at phase 13's size (32768 gaussians, 128^2: the
+  frame over `RENDER_SHRINK`, chunk 1024) on a seeded cloud: the chunk of
+  1024 against 512 (another order of the per-pixel sums), rgb / alpha /
+  depth max |gap| and each gradient leaf's max |gap| over its largest
+  |value|;
 - the same renderer on the state phase 13's Dynamic 3DGS fit reaches at
   t=0 (the fit of frame 0 alone at phase 13's iterations, made on the card
   where there is one), every slot rendered and the free ones at opacity
   logit -1e9 as `train_segment` renders them, against view 0's image and
   foreground mask: the chunk of 1024 against 512 for the fit's L1 loss and
-  for the squared loss phase 13 checks with; each gradient leaf's max |gap|
-  over its largest |value|, and the pixels whose residual changes sign.
+  for the squared loss phase 13 checks with; rgb / alpha / depth max |gap|,
+  each gradient leaf's max |gap| over its largest |value|, and the pixels
+  whose residual changes sign. The frame is rendered at phase 13's 128^2.
 
 Prints one JSON line per control. `--size tiny` runs the same at a small
 size in seconds; `--parts` picks some of vggt, generic, render and render_fit.
@@ -116,9 +118,11 @@ def control_generic(torch, size):
 
 
 def control_render(torch, size):
+    import chip_smoke as smoke
     from mvtracker_torch.ops import gsplat
 
-    n, w, h = (32768, 256, 256) if size == "full" else (2048, 64, 64)
+    shrink = smoke.RENDER_SHRINK
+    n, w, h = (32768, smoke.W // shrink, smoke.H // shrink) if size == "full" else (2048, 64, 64)
     rng = np.random.default_rng(0)
     means = np.stack([rng.uniform(-1.5, 1.5, n), rng.uniform(-1.5, 1.5, n), rng.uniform(-1.0, 1.0, n)], -1)
     inputs = [means, rng.normal(size=(n, 4)), rng.uniform(-4.5, -3.0, (n, 3)), rng.normal(0, 2, n),
@@ -161,21 +165,27 @@ def control_render_fit(torch, size):
     seg = (dp.segmentation[:, :1] > 1).astype(np.float32)
     fitted = d3.fit_scene(video01, seg, dp.intrs[:, 0], dp.extrs[:, 0], xyz, rgb, is_fg, cfg, seed=0, device=dev)
     inputs, target = smoke.fit_render_inputs(fitted, video01, seg)
-    target = torch.from_numpy(target)
-    intr, w2c = torch.from_numpy(dp.intrs[0, 0]), torch.from_numpy(dp.extrs[0, 0])
+    # The render at phase 13's size: the frame over RENDER_SHRINK at full size.
+    shrink = smoke.RENDER_SHRINK if size == "full" else 1
+    target = torch.from_numpy(target[::shrink, ::shrink])
+    intr, w2c = torch.from_numpy(dp.intrs[0, 0]).clone(), torch.from_numpy(dp.extrs[0, 0])
+    intr[:2] /= shrink
     runs = []
     t0 = time.perf_counter()
     for chunk in (1024, 512):
         leaves = [torch.from_numpy(a).requires_grad_(True) for a in inputs]
-        out = gsplat.render_gaussians(*leaves, intr, w2c, (w, h), chunk=chunk)
+        out = gsplat.render_gaussians(*leaves, intr, w2c, (w // shrink, h // shrink), chunk=chunk)
         resid = out.rgb[..., :4] - target
         rest = out.depth.mean() + out.alpha.mean()
         l1 = torch.autograd.grad(gsplat.abs_(resid).mean() + rest, leaves, retain_graph=True)
         sq = torch.autograd.grad(resid.square().mean() + rest, leaves)
-        runs.append((resid.detach() >= 0, l1, sq))
-    (sign_a, l1_a, sq_a), (sign_b, l1_b, sq_b) = runs
+        runs.append((out, resid.detach() >= 0, l1, sq))
+    (out_a, sign_a, l1_a, sq_a), (out_b, sign_b, l1_b, sq_b) = runs
     return {"control": "render_fit", "size": size, "fit_device": dev.type, "cpu_s": round(time.perf_counter() - t0, 1),
-            "active": int(fitted["active"].sum()), "capacity": cfg.capacity, "chunk 1024 vs 512": {
+            "active": int(fitted["active"].sum()), "capacity": cfg.capacity, "render": [w // shrink, h // shrink],
+            "chunk 1024 vs 512": {
+                **{k: float((getattr(out_a, k) - getattr(out_b, k)).detach().abs().max())
+                   for k in ("rgb", "alpha", "depth")},
                 "l1_grads_max_rel": [rel_gap(x, y)["max_rel"] for x, y in zip(l1_a, l1_b)],
                 "square_grads_max_rel": [rel_gap(x, y)["max_rel"] for x, y in zip(sq_a, sq_b)],
                 "residual_sign_flips": int((sign_a != sign_b).sum())}}

@@ -28,8 +28,9 @@ def _port_files():
 
 def _port_scripts():
     """The port's scripts, which run on the GPU host as its entry points do
-    (`scripts/*_torch.py`; the CLIs under `mvtracker_torch/cli/` are port files)."""
-    return sorted((ROOT / "scripts").glob("*_torch.py"))
+    (`scripts/*_torch.py` and the benchmark `bench_torch.py`; the CLIs under
+    `mvtracker_torch/cli/` are port files)."""
+    return sorted((ROOT / "scripts").glob("*_torch.py")) + [ROOT / "bench_torch.py"]
 
 
 def _imported_modules(path):
