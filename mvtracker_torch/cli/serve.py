@@ -15,7 +15,18 @@ seeded random weights with a warning. Requests are served one at a time
 under a lock (one card, one queue); `--warmup_shape V T H W N` runs one
 scene of that shape (`mvtracker_torch/scene.py`) before serving, so that the
 first request does not pay cuDNN's and the kernels' first calls.
-`--device` (default cuda) picks the device.
+`--device` (default cuda) picks the device. Each request logs the time it
+waited for the lock apart from the time it was served.
+
+Each request runs in a thread of its own, so a `torch.profiler` sees its
+spans when it records every thread (`experimental_config=
+torch._C._profiler._ExperimentalConfig(profile_all_threads=True)`): for each
+request `mvtracker::serve.wait` (taking the lock), then the predictor's
+spans: `mvtracker::predict` with `::upload`, `::support` and the model's
+`::forward`, which holds `::upload`, `::encode` (`::encoder`), `::clouds`,
+`::feat_init` and one `::window` a window; a window holds one
+`::correlation` (`::knn`, `::corr`) and one `::transformer` an iteration,
+then `::vis_head` (`mvtracker_torch/utils/observability.py::span`).
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ def make_handler(predictor, stats, lock):
     from http.server import BaseHTTPRequestHandler
 
     from mvtracker_torch.evaluation.evaluator import to_host
+    from mvtracker_torch.utils.observability import span
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # through logging
@@ -67,15 +79,20 @@ def make_handler(predictor, stats, lock):
                     np.asarray(data[k], np.float32) for k in ("rgbs", "depths", "query_points", "intrs", "extrs")
                 )
                 t0 = time.perf_counter()
-                with lock:  # one card: one request at a time; the counts too
+                with span("serve.wait"):
+                    lock.acquire()  # one card: one request at a time; the counts too
+                t1 = time.perf_counter()
+                try:
                     out = predictor(*args)
                     traj, vis = to_host(out["traj"]), to_host(out["vis"])
                     stats["requests"] += 1
                     stats["shapes"].add((args[0].shape, args[2].shape))
-                dt = time.perf_counter() - t0
+                finally:
+                    lock.release()
+                dt = time.perf_counter() - t1
                 logging.info(
-                    "tracked %d pts x %d frames in %.2fs (%.0f pf/s)",
-                    traj.shape[1], traj.shape[0], dt, traj.shape[0] * traj.shape[1] / max(dt, 1e-9),
+                    "tracked %d pts x %d frames in %.2fs after %.2fs waiting for the card (%.0f pf/s)",
+                    traj.shape[1], traj.shape[0], dt, t1 - t0, traj.shape[0] * traj.shape[1] / max(dt, 1e-9),
                 )
                 buf = io.BytesIO()
                 np.savez_compressed(buf, traj=traj, vis=vis)

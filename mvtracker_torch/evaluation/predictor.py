@@ -12,7 +12,10 @@ a tracker.
 
 Inputs arrive as host arrays and move to the predictor's device once per
 call; every step after that stays on the device. The model's weights live
-in the model (the JAX predictor takes them as a separate `params`).
+in the model (the JAX predictor takes them as a separate `params`). A call
+records the profiler spans `mvtracker::predict` (the call), `::upload` (the
+inputs to the device) and `::support` (resize and support points) around
+the model's own (`models/mvtracker.py`).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from torch import nn
 from mvtracker_torch.device import resolve_device
 from mvtracker_torch.models.mvtracker import consume_stats
 from mvtracker_torch.utils import geometry as geo
+from mvtracker_torch.utils.observability import span
 
 
 def nearest_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -199,23 +203,27 @@ class EvaluationPredictor:
         arrays or tensors -> {"traj" [T, N, 3], "vis" [T, N], "occluded"
         [T, N]} on the device. `generator` draws the uniform support points
         (default: seeded with 0 on every call)."""
-        rgbs, depths, query_points, intrs, extrs = map(self._to_device, (rgbs, depths, query_points, intrs, extrs))
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
-        t = rgbs.shape[1]
-        n = query_points.shape[0]
-        chunked = self.chunk_frames is not None and t > self.chunk_frames
+        with span("predict"):
+            with span("upload"):
+                rgbs, depths, query_points, intrs, extrs = map(
+                    self._to_device, (rgbs, depths, query_points, intrs, extrs))
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            t = rgbs.shape[1]
+            n = query_points.shape[0]
+            chunked = self.chunk_frames is not None and t > self.chunk_frames
 
-        rgbs, depths, intrs = self._resize(rgbs, depths, intrs)
-        support = self._support(depths, intrs, extrs, generator)
-        if self.single_point:
-            traj, vis = self._forward_single_point(rgbs, depths, query_points, intrs, extrs, support)
-        else:
-            queries = torch.cat([query_points] + support, dim=0)
-            forward = self._forward_chunked if chunked else self._forward
-            traj, vis = forward(rgbs, depths, queries, intrs, extrs)
-            traj, vis = traj[:, :n], vis[:, :n]
-        return {"traj": traj, "vis": vis, "occluded": vis < self.visibility_threshold}
+            with span("support"):
+                rgbs, depths, intrs = self._resize(rgbs, depths, intrs)
+                support = self._support(depths, intrs, extrs, generator)
+            if self.single_point:
+                traj, vis = self._forward_single_point(rgbs, depths, query_points, intrs, extrs, support)
+            else:
+                queries = torch.cat([query_points] + support, dim=0)
+                forward = self._forward_chunked if chunked else self._forward
+                traj, vis = forward(rgbs, depths, queries, intrs, extrs)
+                traj, vis = traj[:, :n], vis[:, :n]
+            return {"traj": traj, "vis": vis, "occluded": vis < self.visibility_threshold}
 
     def _forward_chunked(self, rgbs, depths, queries, intrs, extrs):
         """Track a long video in segments of `chunk_frames` frames that share

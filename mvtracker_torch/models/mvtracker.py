@@ -47,6 +47,12 @@ The variants subclass this module and replace `_build_context`,
 `_feat_init`, `_corr_knn` and `_corr_features` (`models/spatracker.py`,
 `models/cotracker2d.py`); the context is any tree of per-frame tensors,
 which the window loop slices frame-wise (`take_frames`).
+
+While a profiler records, a forward opens the ranges `mvtracker::forward`,
+`::upload` (inputs to the device), `::encode` (`::encoder`, the `fnet`
+call), `::clouds`, `::feat_init` and one `::window` a window, which holds
+one `::correlation` and one `::transformer` an iteration and `::vis_head`
+(`utils/observability.py::span`); the variants' replaced stages keep them.
 """
 
 from __future__ import annotations
@@ -70,6 +76,7 @@ from mvtracker_torch.ops import knn as knn_ops
 from mvtracker_torch.parallel import mesh as mesh_lib
 from mvtracker_torch.utils import embeddings as emb
 from mvtracker_torch.utils import geometry as geo
+from mvtracker_torch.utils.observability import span
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -359,7 +366,8 @@ class MVTracker(nn.Module):
     def _encode(self, rgbs: torch.Tensor) -> torch.Tensor:
         v, t, h, w, _ = rgbs.shape
         x = 2.0 * (rgbs.reshape(v * t, h, w, 3).float() / 255.0) - 1.0
-        fmaps = self._maybe_remat(self.remat_encoder, self.fnet, x.permute(0, 3, 1, 2))  # NCHW
+        with span("encoder"):
+            fmaps = self._maybe_remat(self.remat_encoder, self.fnet, x.permute(0, 3, 1, 2))  # NCHW
         return fmaps.permute(0, 2, 3, 1).reshape(v, t, h // self.stride, w // self.stride, self.fmaps_dim)
 
     def _maybe_remat(self, enabled: bool, module: nn.Module, *args, **kwargs):
@@ -598,16 +606,19 @@ class MVTracker(nn.Module):
         for _ in range(iters):
             coords = coords.detach()
             corr_features = self._corr_features if self._track_group is None else self._corr_features_split
-            fcorrs = corr_features(context_w, coords, ffeats, knn_cache, stats)
+            with span("correlation"):
+                fcorrs = corr_features(context_w, coords, ffeats, knn_cache, stats)
             flows_emb = emb.coord_embedding_3d(coords - coords[0:1], self.flow_embed_dim)
             x = torch.cat([flows_emb, fcorrs, ffeats, mask_and_vis], dim=-1)
             x = x + pos_embed[None] + times_embed[:, None]
-            delta = self._maybe_remat(True, self.updateformer, x.permute(1, 0, 2)[None], track_mask=active[None])[0]
+            with span("transformer"):
+                delta = self._maybe_remat(True, self.updateformer, x.permute(1, 0, 2)[None], track_mask=active[None])[0]
             delta = delta.permute(1, 0, 2)  # [S, N, 3 + C]
             coords = coords + delta[..., :3]
             ffeats = ffeats + self.ffeats_updater(self.ffeats_norm(delta[..., 3:]))
             preds.append(coords)
-        vis_logits = self._vis_logits(ffeats, geom_w, coords)
+        with span("vis_head"):
+            vis_logits = self._vis_logits(ffeats, geom_w, coords)
         return preds, vis_logits
 
     # ------------------------------------------------------------------
@@ -630,7 +641,7 @@ class MVTracker(nn.Module):
         With `collect_stats` the output also holds "knn_stats":
         {"knn_dists_lvl{L}": [W, iters, k_L]}, the mean neighbour distance
         per rank over each window's (frame, track) grid (`consume_stats`)."""
-        with contextlib.nullcontext() if is_train else torch.no_grad():
+        with span("forward"), contextlib.nullcontext() if is_train else torch.no_grad():
             return self._forward(rgbs, depths, query_points, intrs, extrs, iters, is_train)
 
     def _global_match(self, context_w, feat_init, query_xyz, query_t, frame_idx):
@@ -650,7 +661,8 @@ class MVTracker(nn.Module):
         return torch.where(at_query[..., None], query_xyz[None].expand_as(match_xyz), match_xyz)
 
     def _forward(self, rgbs, depths, query_points, intrs, extrs, iters: int, is_train: bool) -> dict:
-        rgbs, depths, query_points, intrs, extrs = map(self._as_input, (rgbs, depths, query_points, intrs, extrs))
+        with span("upload"):
+            rgbs, depths, query_points, intrs, extrs = map(self._as_input, (rgbs, depths, query_points, intrs, extrs))
         v, t, h, w, _ = rgbs.shape
         n = query_points.shape[0]
         s = self.sliding_window_len
@@ -673,10 +685,13 @@ class MVTracker(nn.Module):
             extrs = torch.cat([r_new, t_new[..., None]], dim=-1)
             query_xyz = apply_scene_transform(scale, rot, trans, query_xyz)
 
-        fmaps = self.compute_fmaps(rgbs)
+        with span("encode"):
+            fmaps = self.compute_fmaps(rgbs)
         depths_strided = depths[:, :, :: self.stride, :: self.stride]
-        context = self._build_context(fmaps, depths_strided, intrs, extrs)
-        feat_init = self._feat_init(context, query_t, query_xyz)
+        with span("clouds"):
+            context = self._build_context(fmaps, depths_strided, intrs, extrs)
+        with span("feat_init"):
+            feat_init = self._feat_init(context, query_t, query_xyz)
 
         # Windows are anchored at the earliest query time; n_exec is the
         # number the reference's `while start < T - hop` loop runs.
@@ -687,49 +702,50 @@ class MVTracker(nn.Module):
         stats = {} if self.collect_stats else None
         all_coords, all_vis, all_active, all_preds, starts = [], [], [], [], []
         for wi in range(n_exec):
-            w_start = qt_min + wi * hop
-            is_first = wi == 0
-            frame_idx = torch.clamp(torch.arange(s, device=dev) + w_start, max=t - 1)
-            active = query_t < w_start + s
-            context_w = take_frames(context, frame_idx)
-            geom_w = None
-            if self.vis_geom_features:
-                geom_w = tuple(a.index_select(1, frame_idx) for a in (depths, intrs, extrs))
+            with span("window"):
+                w_start = qt_min + wi * hop
+                is_first = wi == 0
+                frame_idx = torch.clamp(torch.arange(s, device=dev) + w_start, max=t - 1)
+                active = query_t < w_start + s
+                context_w = take_frames(context, frame_idx)
+                geom_w = None
+                if self.vis_geom_features:
+                    geom_w = tuple(a.index_select(1, frame_idx) for a in (depths, intrs, extrs))
 
-            if self.global_match_init:
-                coords_init = self._global_match(context_w, feat_init, query_xyz, query_t, frame_idx)
-            else:
-                coords_init = query_xyz[None].expand(s, n, 3)
-            vis_init = torch.full((s, n), 10.0, device=dev)
-            if not is_first:
-                # Tracks active in the previous window continue from its
-                # second half. The new frames repeat its last frame, or with
-                # `chain_velocity` extrapolate its last displacement.
-                chained = query_t < w_start + (s - hop)
-                prev_tail, prev_vis_tail = all_coords[-1][hop:], all_vis[-1][hop:]
-                if self.chain_velocity > 0.0 and hop >= 2:
-                    vel = (prev_tail[-1] - prev_tail[-2]) * self.chain_velocity
-                    steps = torch.arange(1, s - hop + 1, dtype=vel.dtype, device=dev)
-                    new_frames = prev_tail[-1][None] + steps[:, None, None] * vel[None]
+                if self.global_match_init:
+                    coords_init = self._global_match(context_w, feat_init, query_xyz, query_t, frame_idx)
                 else:
-                    new_frames = prev_tail[-1:].expand(s - hop, n, 3)
-                chained_coords = torch.cat([prev_tail, new_frames])
-                chained_vis = torch.cat([prev_vis_tail, prev_vis_tail[-1:].expand(s - hop, n)])
-                coords_init = torch.where(chained[None, :, None], chained_coords, coords_init)
-                vis_init = torch.where(chained[None, :], chained_vis, vis_init)
+                    coords_init = query_xyz[None].expand(s, n, 3)
+                vis_init = torch.full((s, n), 10.0, device=dev)
+                if not is_first:
+                    # Tracks active in the previous window continue from its
+                    # second half. The new frames repeat its last frame, or with
+                    # `chain_velocity` extrapolate its last displacement.
+                    chained = query_t < w_start + (s - hop)
+                    prev_tail, prev_vis_tail = all_coords[-1][hop:], all_vis[-1][hop:]
+                    if self.chain_velocity > 0.0 and hop >= 2:
+                        vel = (prev_tail[-1] - prev_tail[-2]) * self.chain_velocity
+                        steps = torch.arange(1, s - hop + 1, dtype=vel.dtype, device=dev)
+                        new_frames = prev_tail[-1][None] + steps[:, None, None] * vel[None]
+                    else:
+                        new_frames = prev_tail[-1:].expand(s - hop, n, 3)
+                    chained_coords = torch.cat([prev_tail, new_frames])
+                    chained_vis = torch.cat([prev_vis_tail, prev_vis_tail[-1:].expand(s - hop, n)])
+                    coords_init = torch.where(chained[None, :, None], chained_coords, coords_init)
+                    vis_init = torch.where(chained[None, :], chained_vis, vis_init)
 
-            # Frames consumed by earlier windows carry a zero track mask.
-            cutoff = query_t if is_first else torch.clamp(query_t, min=w_start + (s - hop))
-            track_mask = (frame_idx[:, None] >= cutoff[None, :]).float()
+                # Frames consumed by earlier windows carry a zero track mask.
+                cutoff = query_t if is_first else torch.clamp(query_t, min=w_start + (s - hop))
+                track_mask = (frame_idx[:, None] >= cutoff[None, :]).float()
 
-            preds, vis_logits = self.forward_iteration(
-                context_w, coords_init, vis_init, track_mask, active, feat_init, iters, geom_w, stats
-            )
-            all_coords.append(preds[-1])
-            all_preds.append(preds)
-            starts.append(w_start)
-            all_vis.append(vis_logits)
-            all_active.append(active)
+                preds, vis_logits = self.forward_iteration(
+                    context_w, coords_init, vis_init, track_mask, active, feat_init, iters, geom_w, stats
+                )
+                all_coords.append(preds[-1])
+                all_preds.append(preds)
+                starts.append(w_start)
+                all_vis.append(vis_logits)
+                all_active.append(active)
 
         # For each frame the last executed window covering it wins; frames
         # before the anchor and inactive tracks stay zero.

@@ -35,6 +35,7 @@ import math
 import torch
 
 from mvtracker_torch.ops import _cuda
+from mvtracker_torch.utils.observability import span
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -246,11 +247,13 @@ corr_select_backward_cuda.launches = 0
 
 def corr_select(fvec: torch.Tensor, targets: torch.Tensor, idx: torch.Tensor):
     """Correlations <targets[b, n], fvec[b, idx[b, n, k]]> -> [B, N, K] fp32,
-    unscaled: the CUDA kernel for CUDA tensors, the plain version for CPU."""
-    if fvec.is_cuda:
-        return corr_select_cuda(fvec, targets, idx)
-    if fvec.device.type == "cpu":
-        return corr_select_plain(fvec, targets, idx)
+    unscaled: the CUDA kernel for CUDA tensors, the plain version for CPU.
+    Records the profiler span `mvtracker::corr`."""
+    with span("corr"):
+        if fvec.is_cuda:
+            return corr_select_cuda(fvec, targets, idx)
+        if fvec.device.type == "cpu":
+            return corr_select_plain(fvec, targets, idx)
     raise ValueError(f"corr_select: unsupported device {fvec.device}")
 
 

@@ -45,6 +45,7 @@ import torch.distributed as dist
 
 from mvtracker_torch.ops import _cuda
 from mvtracker_torch.parallel import mesh as mesh_lib
+from mvtracker_torch.utils.observability import span
 
 _BIG = 1e30
 MAX_K = 32  # the kernels keep one top-k entry per lane of a warp
@@ -255,13 +256,15 @@ def knn(ref: torch.Tensor, query: torch.Tensor, k: int, backend: str = "auto"):
     """Batched kNN dispatch: [B, N, 3], [B, M, 3] -> ([B, M, k], [B, M, k]).
     `backend` picks the kernel for CUDA tensors (`auto`: `fused` up to
     `FUSED_MAX_POINTS` reference points, `tiled` above); CPU tensors take the
-    plain version with the same contract."""
+    plain version with the same contract. Records the profiler span
+    `mvtracker::knn`."""
     backend = resolve_backend(backend, ref.shape[1])
-    if ref.is_cuda:
-        kernel = {"fused": knn_cuda, "tiled": knn_tiled_cuda, "exact": knn_exact_cuda}[backend]
-        return kernel(ref.float().contiguous(), query.float().contiguous(), k)
-    if ref.device.type == "cpu" and query.device.type == "cpu":
-        return (knn_exact_plain if backend == "exact" else knn_plain)(ref, query, k)
+    with span("knn"):
+        if ref.is_cuda:
+            kernel = {"fused": knn_cuda, "tiled": knn_tiled_cuda, "exact": knn_exact_cuda}[backend]
+            return kernel(ref.float().contiguous(), query.float().contiguous(), k)
+        if ref.device.type == "cpu" and query.device.type == "cpu":
+            return (knn_exact_plain if backend == "exact" else knn_plain)(ref, query, k)
     raise ValueError(f"knn: unsupported devices {ref.device}, {query.device}")
 
 

@@ -36,11 +36,11 @@ from contextlib import nullcontext
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from mvtracker_torch.parallel import mesh as mesh_lib
 from mvtracker_torch.training import losses
 from mvtracker_torch.utils import geometry
+from mvtracker_torch.utils.observability import span
 
 
 def _interpolated_schedule(kind: str, init_value: float, boundaries_and_scales: dict[int, float]):
@@ -225,8 +225,8 @@ def make_train_step(
     `xyz_loss`, `vis_loss`, `reproj_dev`, and `feat_id` with that loss on;
     with a mesh, means over all scenes and the largest `reproj_dev`. The
     forward, the backward and the optimizer run inside profiler spans
-    `stage::forward`, `stage::backward` and `stage::optimizer`, which cost
-    nothing to speak of while no profiler records.
+    `mvtracker::train.forward`, `::train.backward` and `::train.optimizer`
+    (`utils/observability.py::span`: one check while no profiler records).
     """
     if shard_tracks and getattr(model, "knn_mesh", None) is not None:
         raise ValueError("shard_tracks and the model's knn_mesh both split the correlation stage; use one")
@@ -245,9 +245,9 @@ def make_train_step(
         with split:
             for i in range(n_scenes):
                 scene = {k: v[i] for k, v in batch.items() if getattr(v, "ndim", 0) > 0}
-                with record_function("stage::forward"):
+                with span("train.forward"):
                     total, parts = scene_loss(model, scene, iters, gamma, vis_weight, feat_id_weight)
-                with record_function("stage::backward"):
+                with span("train.backward"):
                     (total / (n_scenes * n_ranks)).backward()
                 totals.append(total.detach())
                 per_scene.append({k: v.detach() for k, v in parts.items()})
@@ -262,7 +262,7 @@ def make_train_step(
             _sum_over_world(grads)
             metrics = _aggregate(metrics, n_ranks)
         metrics["grad_norm"] = global_norm(grads.values())
-        with record_function("stage::optimizer"):
+        with span("train.optimizer"):
             optimizer.update(params, grads, state.opt_state)
         model.zero_grad(set_to_none=True)
         state.step += 1

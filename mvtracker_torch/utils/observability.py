@@ -13,10 +13,17 @@
   over a window of train steps, written as a chrome trace.
 - `device_memory_stats`: per-GPU memory in use and its peak, from
   `torch.cuda.memory_stats`, under the JAX package's keys.
+- `span`: a `mvtracker::<name>` range in whichever `torch.profiler` is
+  recording (the benchmark's traced run, `ProfilerTraceWindow`, an
+  operator's own), and a shared no-op after one check while none is. The
+  ranges sit on the profiler's clock, the one the device operations are
+  stamped with, so an idle gap on the card can be matched to the span the
+  host was in.
 """
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import logging
 import os
@@ -24,12 +31,29 @@ import sys
 from typing import Optional
 
 import torch
+from torch.autograd import profiler as autograd_profiler
+from torch.profiler import record_function
+
+SPAN_PREFIX = "mvtracker::"
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _process_rank() -> int:
     if torch.distributed.is_available() and torch.distributed.is_initialized():
         return torch.distributed.get_rank()
     return 0
+
+
+def span(name: str):
+    """`record_function("mvtracker::" + name)` while a profiler records, else
+    a shared no-op context: one check when nothing records. The check reads
+    the flag every `torch.profiler` sets for the whole process, so a span in
+    another thread is recorded by a profiler that records all threads. The
+    spans of one request are the ranges inside its root range (`predict`,
+    or `forward` called directly) on the thread that made it."""
+    if not autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return record_function(SPAN_PREFIX + name)
 
 
 class RankedLogger(logging.LoggerAdapter):

@@ -9,8 +9,13 @@ weights), answers one warm-up request and then `--requests` timed ones at
 and profiles the last one with `torch.profiler`. Prints the card, the
 request times, the device-busy share (union of the profiled request's
 kernel intervals over its wall time, and over the median unprofiled
-request's, since the profiler slows the host), the CUDA time per model
-stage and the top kernels by CUDA time.
+request's, since the profiler slows the host), the calls, host time and
+device time of each of the program's `mvtracker::` spans
+(`mvtracker_torch/utils/observability.py::span`) and the top kernels by
+CUDA time. The spans' device times are `key_averages()`'s, which leave out
+the kernels the port launches through ctypes (K1 to K5 under `knn` and
+`corr`); `perfbench/program_spans.py` links every device operation to its
+launch.
 """
 
 from __future__ import annotations
@@ -43,9 +48,17 @@ def busy_us(events) -> float:
     return busy
 
 
+def span_rows(prof, prefix: str = "mvtracker::") -> dict:
+    """{span: (calls, host ms, device ms)} of the program's spans whose name
+    starts with `prefix`, from the host ranges of a profile: a range's device
+    time is that of the kernels launched inside it on its own thread."""
+    return {e.key: (e.count, e.cpu_time_total / 1e3, e.device_time_total / 1e3)
+            for e in prof.key_averages() if e.key.startswith(prefix) and e.cpu_time_total > 0}
+
+
 def main() -> int:
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from mvtracker_torch.convert import random_state_dict
     from mvtracker_torch.models.mvtracker import MVTracker
@@ -65,16 +78,6 @@ def main() -> int:
     model.load_state_dict(random_state_dict(model, seed=0))
     scene = [torch.as_tensor(a, device=dev) for a in make_scene(np.random.default_rng(0), V, T, H, W, N_QUERIES)]
 
-    # Stage markers around the forward's parts, for the per-stage sums.
-    stages = {
-        "encoder": model.fnet,
-        "updateformer": model.updateformer,
-    }
-    for name, mod in stages.items():
-        mod.register_forward_pre_hook(lambda m, a, n=name: m.__dict__.setdefault("_rf", []).append(
-            record_function(f"stage::{n}").__enter__()))
-        mod.register_forward_hook(lambda m, a, o: m._rf.pop().__exit__(None, None, None))
-
     model(*scene, iters=ITERS)  # warm-up
     torch.cuda.synchronize()
     times = []
@@ -92,8 +95,8 @@ def main() -> int:
     print(f"request ms {[round(x, 2) for x in times]} (last one profiled)")
 
     events = prof.events()
-    # Device-side events, without the stage annotations' own device ranges.
-    kernels = [e for e in events if e.device_type.name == "CUDA" and not e.name.startswith("stage::")]
+    # Device-side events, without the spans' own device ranges.
+    kernels = [e for e in events if e.device_type.name == "CUDA" and not e.name.startswith("mvtracker::")]
     dev_total_us = sum(e.time_range.end - e.time_range.start for e in kernels)
     busy_ms = busy_us(kernels) / 1e3
     # The profiler slows the host, so the profiled request's wall time is
@@ -103,10 +106,8 @@ def main() -> int:
           f"kernel time {dev_total_us / 1e3:.2f} ms, device busy {busy_ms:.2f} ms; busy share "
           f"{busy_ms / wall_ms:.3f} of the profiled request, {busy_ms / plain_ms:.3f} of the median "
           f"unprofiled request ({plain_ms:.2f} ms)")
-    for e in prof.key_averages():
-        if e.key.startswith("stage::"):
-            print(f"{e.key}: calls {e.count}, cpu total {e.cpu_time_total / 1e3:.2f} ms, "
-                  f"device total {e.device_time_total / 1e3:.2f} ms")
+    for key, (calls, host_ms, device_ms) in span_rows(prof).items():
+        print(f"{key}: calls {calls}, cpu total {host_ms:.2f} ms, device total {device_ms:.2f} ms")
     print(prof.key_averages().table(sort_by="device_time_total", row_limit=args.top, max_name_column_width=60))
     return 0
 

@@ -12,8 +12,8 @@ training phase): one warm-up step, `--steps` timed ones, the last under
 `torch.profiler`. Prints the card, the step times, the device-busy share
 (union of the profiled step's kernel intervals over its wall time, and over
 the median unprofiled step's, since the profiler slows the host), the host
-and device time of the spans `stage::forward`, `stage::backward` and
-`stage::optimizer` that the train step records, the peak memory, and the
+and device time of the spans `mvtracker::train.forward`, `::train.backward`
+and `::train.optimizer` that the train step records, the peak memory, and the
 top kernels by device time. The kernels are built before the first step, so
 that step's time is the framework's warm-up, not `nvcc`. With `--compare-remat` it then times the same
 steps with `remat=False` and prints both peaks.
@@ -56,7 +56,7 @@ sys.path.insert(0, str(ROOT))
 
 import bench_torch  # noqa: E402
 from scripts import timing_torch  # noqa: E402
-from scripts.profile_torch_forward import busy_us  # noqa: E402
+from scripts.profile_torch_forward import busy_us, span_rows  # noqa: E402
 
 V, T, H, W, N_QUERIES, ITERS = 4, 24, 256, 256, 256, 4
 VARIANTS = {
@@ -247,7 +247,7 @@ def profile(args) -> dict:
     print(f"memory: resident {resident / 2**20:.1f} MiB (weights, AdamW state, batch), peak {peak / 2**20:.1f} MiB, "
           f"per step {(peak - resident) / 2**20:.1f} MiB [{smi}]")
 
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA" and not e.name.startswith("stage::")]
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA" and not e.name.startswith("mvtracker::")]
     dev_total_us = sum(e.time_range.end - e.time_range.start for e in kernels)
     busy_ms = busy_us(kernels) / 1e3
     plain_ms = float(np.median(times)) if times else float("nan")
@@ -258,12 +258,12 @@ def profile(args) -> dict:
     # inside it on its own thread. The backward's kernels are launched by the
     # autograd engine's thread, so its device time is what the forward and
     # the optimizer leave of the step's kernel time.
-    host = {e.key: e for e in prof.key_averages() if e.key.startswith("stage::") and e.cpu_time_total > 0}
-    for key, e in host.items():
-        print(f"{key}: host {e.cpu_time_total / 1e3:.2f} ms, device {e.device_time_total / 1e3:.2f} ms")
-    rest_ms = (dev_total_us - sum(e.device_time_total for e in host.values())) / 1e3
-    print(f"stage::backward device time, as the step's kernel time outside the forward and optimizer spans: "
-          f"{rest_ms:.2f} ms")
+    host = span_rows(prof, "mvtracker::train.")
+    for key, (_, host_ms, device_ms) in host.items():
+        print(f"{key}: host {host_ms:.2f} ms, device {device_ms:.2f} ms")
+    rest_ms = dev_total_us / 1e3 - sum(device_ms for _, _, device_ms in host.values())
+    print(f"mvtracker::train.backward device time, as the step's kernel time outside the forward and optimizer "
+          f"spans: {rest_ms:.2f} ms")
     print(prof.key_averages().table(sort_by="device_time_total", row_limit=args.top, max_name_column_width=60))
     report = {"first_ms": first[0], "step_ms": times, "profiled_ms": wall_ms, "peak_mib": peak / 2**20,
               "resident_mib": resident / 2**20, "kernels": len(kernels), "busy_ms": busy_ms}
