@@ -5,7 +5,9 @@ model stays resident and answers npz requests over HTTP.
 
     POST /track   body = .npz bytes with rgbs [V,T,H,W,3], depths [V,T,H,W],
                   query_points [N,4], intrs [V,T,3,3], extrs [V,T,3,4]
-                  -> .npz bytes with traj [T,N,3], vis [T,N]
+                  -> .npz bytes with traj [T,N,3], vis [T,N]; arrays of
+                  any real dtype, widened to fp32 on the device (uint8
+                  frames cross to it at a byte a channel)
     GET  /healthz -> JSON: device, input shapes served, request and error counts
 
 The model is the flagship `MVTracker` (fp32), as in the JAX server. Its
@@ -75,9 +77,8 @@ def make_handler(predictor, stats, lock):
             try:
                 n = int(self.headers.get("Content-Length", 0))
                 data = np.load(io.BytesIO(self.rfile.read(n)), allow_pickle=False)
-                args = tuple(
-                    np.asarray(data[k], np.float32) for k in ("rgbs", "depths", "query_points", "intrs", "extrs")
-                )
+                # At their stored width: the predictor widens on the device.
+                args = tuple(data[k] for k in ("rgbs", "depths", "query_points", "intrs", "extrs"))
                 t0 = time.perf_counter()
                 with span("serve.wait"):
                     lock.acquire()  # one card: one request at a time; the counts too

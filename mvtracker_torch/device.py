@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 
@@ -21,6 +22,19 @@ def resolve_device(device="cuda") -> torch.device:
             "pass device='cpu' to run the plain PyTorch path"
         )
     return device
+
+
+def to_device_fp32(x, device) -> torch.Tensor:
+    """`x` (a tensor, or an array `np.asarray` takes) on `device` as fp32:
+    moved at its own width, then widened on the device. uint8 frames and
+    fp16 depths cross the bus at a quarter or half of fp32's bytes, and a
+    pinned source is copied as it is; a cast on the host first would fill a
+    fresh pageable buffer. The widening rounds as the host's would (uint8 is
+    exact, float64 rounds to nearest). An fp32 tensor already on `device`
+    comes back as it is."""
+    if not torch.is_tensor(x):
+        x = torch.from_numpy(np.ascontiguousarray(x))  # from_numpy refuses negative strides
+    return x.to(device).float()
 
 
 @contextlib.contextmanager

@@ -11,11 +11,12 @@ a tracker.
   original queries' tracks are returned; visibility is thresholded.
 
 Inputs arrive as host arrays and move to the predictor's device once per
-call; every step after that stays on the device. The model's weights live
-in the model (the JAX predictor takes them as a separate `params`). A call
-records the profiler spans `mvtracker::predict` (the call), `::upload` (the
-inputs to the device) and `::support` (resize and support points) around
-the model's own (`models/mvtracker.py`).
+call, at their own width, and are widened to fp32 there
+(`device.to_device_fp32`); every step after that stays on the device. The
+model's weights live in the model (the JAX predictor takes them as a
+separate `params`). A call records the profiler spans `mvtracker::predict`
+(the call), `::upload` (the inputs to the device) and `::support` (resize
+and support points) around the model's own (`models/mvtracker.py`).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mvtracker_torch.device import resolve_device
+from mvtracker_torch.device import resolve_device, to_device_fp32
 from mvtracker_torch.models.mvtracker import consume_stats
 from mvtracker_torch.utils import geometry as geo
 from mvtracker_torch.utils.observability import span
@@ -140,6 +141,10 @@ class EvaluationPredictor:
             raise ValueError("consume_model_stats needs a model built with collect_stats=True")
         self.consume_model_stats = consume_model_stats
         self.last_model_stats = None
+        # The bytes of the last call's inputs at the width they were given
+        # in: what host inputs carry across to the device (uint8 frames a
+        # byte a channel). Summed from the shapes, with no sync.
+        self.last_upload_bytes = None
         # Temporal chunking for long videos (reference demo, `demo.py:694-880`):
         # segments of `chunk_frames` frames overlapping by one frame; None (or
         # any value < 2) disables.
@@ -154,9 +159,7 @@ class EvaluationPredictor:
     # ------------------------------------------------------------------
 
     def _to_device(self, x) -> torch.Tensor:
-        if not torch.is_tensor(x):
-            x = torch.from_numpy(np.asarray(x, dtype=np.float32))
-        return x.to(self.device, torch.float32)
+        return to_device_fp32(x, self.device)
 
     def _as_tensor(self, x) -> torch.Tensor:
         if not torch.is_tensor(x):
@@ -205,8 +208,9 @@ class EvaluationPredictor:
         (default: seeded with 0 on every call)."""
         with span("predict"):
             with span("upload"):
-                rgbs, depths, query_points, intrs, extrs = map(
-                    self._to_device, (rgbs, depths, query_points, intrs, extrs))
+                inputs = (rgbs, depths, query_points, intrs, extrs)
+                self.last_upload_bytes = sum(x.nbytes if torch.is_tensor(x) else np.asarray(x).nbytes for x in inputs)
+                rgbs, depths, query_points, intrs, extrs = map(self._to_device, inputs)
             if generator is None:
                 generator = torch.Generator(device=self.device).manual_seed(0)
             t = rgbs.shape[1]

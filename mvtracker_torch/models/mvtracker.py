@@ -66,7 +66,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from mvtracker_torch.device import fp32_precision, resolve_device
+from mvtracker_torch.device import fp32_precision, resolve_device, to_device_fp32
 from mvtracker_torch.models.encoder import BasicEncoder
 from mvtracker_torch.models.layers import LayerNorm, Linear
 from mvtracker_torch.models.point_transformer import SerializedPointTransformer
@@ -626,11 +626,7 @@ class MVTracker(nn.Module):
     # ------------------------------------------------------------------
 
     def _as_input(self, x) -> torch.Tensor:
-        # Move first, cast on the device: uint8 frames and float16 depths
-        # cross the bus at their own width.
-        if not torch.is_tensor(x):
-            x = torch.from_numpy(np.asarray(x))
-        return x.to(self.device).float()
+        return to_device_fp32(x, self.device)
 
     def forward(self, rgbs, depths, query_points, intrs, extrs, iters: int = 4, is_train: bool = False) -> dict:
         """Track the queries through the video -> {"traj" [T, N, 3], "vis"

@@ -249,8 +249,9 @@ def post(url, arrays):
 
 def test_serve_answers_like_the_predictor():
     """The server on 127.0.0.1 in a thread: two requests answered with the
-    predictor's own tracks, bit for bit; a malformed one reported as an
-    error; /healthz counts them."""
+    predictor's own tracks, bit for bit; uint8 frames reach the predictor
+    as posted (a byte a channel) and answer as the same values posted as
+    fp32; a malformed request reported as an error; /healthz counts them."""
     model = tiny_model().eval()
     server, predictor = t_serve.build_server(model, port=0, interp_shape=None, grid_size=2, n_iters=1, device="cpu")
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -263,11 +264,19 @@ def test_serve_answers_like_the_predictor():
                                                                 scene)))
             want = EvaluationPredictor(model, interp_shape=None, grid_size=2, n_iters=1, device="cpu")(*scene)
             assert np.array_equal(got["traj"], want["traj"].numpy()) and np.array_equal(got["vis"], want["vis"].numpy())
+        names = ("rgbs", "depths", "query_points", "intrs", "extrs")
+        rgbs, *rest = make_scene(np.random.default_rng(2), 2, 6, 32, 32, 5)
+        answers = []
+        for frames in (rgbs.astype(np.uint8), rgbs.astype(np.uint8).astype(np.float32)):
+            answers.append(post(f"http://{host}:{port}/track", dict(zip(names, [frames, *rest]))))
+            assert predictor.last_upload_bytes == frames.nbytes + sum(a.nbytes for a in rest)
+        for key in ("traj", "vis"):
+            assert np.array_equal(answers[0][key], answers[1][key]), key
         with pytest.raises(urllib.error.HTTPError):
             post(f"http://{host}:{port}/track", {"rgbs": np.zeros(3)})
         with urllib.request.urlopen(f"http://{host}:{port}/healthz", timeout=30) as resp:
             health = json.loads(resp.read())
-        assert health == {"device": "cpu", "shapes": 1, "requests": 2, "errors": 1}
+        assert health == {"device": "cpu", "shapes": 1, "requests": 4, "errors": 1}
     finally:
         server.shutdown()
         server.server_close()

@@ -145,6 +145,37 @@ def test_copycat_through_the_predictor_matches_jax(baseline):
     _check(got, want, 0.0, 0.0)
 
 
+def _given(form, scene):
+    """The scene as `form` hands it to the predictor: (the inputs, the same
+    values widened to fp32 on the host)."""
+    rgbs, depths, query, intrs, extrs = scene
+    u8 = rgbs.astype(np.uint8)
+    if form == "float64_cameras":
+        noise = np.random.default_rng(0).normal(scale=1e-6, size=extrs.shape)  # not fp32-representable
+        given = (u8, depths, query, intrs.astype(np.float64), extrs + noise)
+    else:
+        frames = {"uint8_tensor": torch.from_numpy(u8), "uint8_array": u8, "uint8_reversed_view": u8[..., ::-1]}[form]
+        given = (frames, depths, query, intrs, extrs)
+    return given, tuple(np.asarray(x, dtype=np.float32) for x in given)
+
+
+@pytest.mark.parametrize("form", ["uint8_tensor", "uint8_array", "uint8_reversed_view", "float64_cameras"])
+def test_inputs_cross_at_their_own_width(tracker, form):
+    """Inputs move at the width they come in and are widened on the device:
+    uint8 frames as a tensor, as an array or as a negative-stride view, and
+    float64 cameras, answer bit for bit as their values widened to fp32 on
+    the host (for the view: its contiguous copy), and `last_upload_bytes`
+    counts them at their own width, uint8 frames at a byte a channel."""
+    given, host = _given(form, _scene(seed=4))
+    pred = t_pred.EvaluationPredictor(tracker[0], interp_shape=(64, 96), grid_size=2, n_iters=1, device="cpu")
+    got = pred(*given)
+    sent = pred.last_upload_bytes
+    want = pred(*host)
+    assert sent == sum(np.asarray(x).nbytes for x in given) < pred.last_upload_bytes == sum(x.nbytes for x in host)
+    for key in ("traj", "vis", "occluded"):
+        assert torch.equal(got[key], want[key]), key
+
+
 def test_predictor_refuses_what_it_cannot_do(tracker):
     model = tracker[0]
     with pytest.raises(ValueError, match="collect_stats"):  # a model that collects no statistics
