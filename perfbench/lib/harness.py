@@ -8,7 +8,15 @@ generator (`lib/traffic.py`), keeps them in pinned host memory, and answers
 cycling through the pool, until `seconds` have passed; the request that is
 in flight at the deadline finishes and counts. With `trace`, a
 `FlopCounterMode` request and `profiled_requests` traced requests follow
-the window; the per-layer metrics read them and the window's request times.
+the window; the per-layer metrics read them and the window's request times
+(`TraceContext`). From the traced records they get two summaries: the
+device time under the benchmark's outside spans (`perfbench/spans/`,
+`trace.summarize`) and the table of the program's own `mvtracker::` spans
+(`program_trace.summarize`), in which a span is found by its name, so a
+span that the program opens later is read by a new reader with no edit
+here. The `FlopCounterMode` request also keeps the counter's operations by
+module (`flops_by_module`), so a layer's roofline is its module's
+operations over its span's device time.
 The process is searched for forbidden modules (`lib/hygiene.py`) at the end
 of set-up, as the window closes, and once more as the last step, after the
 reference, the controls and the metric readers have loaded.
@@ -25,7 +33,7 @@ from pathlib import Path
 
 import torch
 
-from perfbench.lib import check, counts, hygiene, program, spans, stats, trace, weights
+from perfbench.lib import check, counts, hygiene, program, program_trace, spans, stats, trace, weights
 
 GIB = 2**30
 
@@ -98,37 +106,62 @@ def load_reader(root: Path, name: str):
 
 
 class TraceContext:
-    """What a per-layer metric reader reads (see `perfbench/metrics/`)."""
+    """What a per-layer metric reader reads (see `perfbench/metrics/`):
+
+    - `summary`: `trace.summarize` of the traced requests (busy time,
+      kernels, `span_device_s` under the outside spans, the breakdown);
+    - `calls`: the recorded calls of the wrapped functions, by span;
+    - `requests`: the number of traced requests; `plain_request_s`: the
+      window's request times;
+    - `flops_per_request`: the model's operations a request (`count_flops`);
+    - `peaks`: the card's peaks (`counts.peaks`), None on a card without;
+    - `program`: `program_trace.summarize` of the traced requests, with the
+      program's spans under `program["spans"][name]`, summed over the
+      requests; None where no trace was read;
+    - `flops_by_module`: `FlopCounterMode`'s operations a request by the
+      counter's module name (`"MVTracker.updateformer"`, `"Global"` for all),
+      weighted as `flops_per_request`; None where nothing was counted.
+    """
 
     def __init__(self, summary: dict, calls: dict, requests: int, plain_request_s: list, flops_per_request: float,
-                 peaks: dict | None):
+                 peaks: dict | None, program: dict | None = None, flops_by_module: dict | None = None):
         self.summary = summary
         self.calls = calls
         self.requests = requests
         self.plain_request_s = plain_request_s
         self.flops_per_request = flops_per_request
         self.peaks = peaks
+        self.program = program
+        self.flops_by_module = flops_by_module
 
 
 def shape_key(clip: dict) -> tuple:
     return tuple((k, tuple(v.shape)) for k, v in sorted(clip.items()))
 
 
-def flops_per_request(model, call, clips, answers, span_specs) -> float:
-    """The window's mean operations a request: each distinct shape of the
-    pool counted once (`count_flops`), weighted by the window's requests."""
+def flops_per_request(model, call, clips, answers, span_specs) -> tuple[float, dict]:
+    """The window's mean operations a request, and the same by module: each
+    distinct shape of the pool counted once (`count_flops`), weighted by the
+    window's requests."""
     by_shape = {}
     for c in clips:
         if shape_key(c) not in by_shape:
             by_shape[shape_key(c)] = count_flops(model, call, c, span_specs)
     used = [clips[ci] for ci, _, _ in answers] or clips[:1]
-    return sum(by_shape[shape_key(c)] for c in used) / len(used)
+    total = sum(by_shape[shape_key(c)][0] for c in used) / len(used)
+    by_module = {}
+    for c in used:
+        for name, flops in by_shape[shape_key(c)][1].items():
+            by_module[name] = by_module.get(name, 0.0) + flops / len(used)
+    return total, by_module
 
 
-def count_flops(model, call, clip, span_specs) -> float:
+def count_flops(model, call, clip, span_specs) -> tuple[float, dict]:
     """One request's model operations: `FlopCounterMode`'s convolutions and
     matmuls outside the kNN and correlation dispatchers, plus their counts
-    from the shapes of the calls."""
+    from the shapes of the calls; and the counter's own operations by its
+    module names, summed over operators, with nothing taken out or added
+    (the kernels that run through ctypes, it never sees)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     sp = spans.install(model, span_specs)
@@ -144,11 +177,16 @@ def count_flops(model, call, clip, span_specs) -> float:
               for c in sp.calls.get("knn", []))
     corr = sum(counts.corr_operations(*c["args"][2]["shape"], c["args"][0]["shape"][-1])
                for c in sp.calls.get("corr", []))
-    return float(dense + knn + corr)
+    by_module = {name: float(sum(ops.values())) for name, ops in counter.get_flop_counts().items()}
+    return float(dense + knn + corr), by_module
 
 
-def traced(model, call, clips, traffic, span_specs, device) -> tuple[dict, dict, int]:
-    """Profile `profiled_requests` requests with the spans in place."""
+def traced(model, call, clips, traffic, span_specs, device) -> dict:
+    """Profile `profiled_requests` requests with the spans in place: the
+    outside spans' `summary`, the wrapped functions' `calls`, the number of
+    `requests`, the `program`'s span table over the requests, the `records`
+    (`trace.records`) and the optional spans the program lacks
+    (`spans_missing`)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     n = traffic["profiled_requests"]
@@ -163,20 +201,22 @@ def traced(model, call, clips, traffic, span_specs, device) -> tuple[dict, dict,
     finally:
         sp.close()
     recs = trace.records(prof)
-    req = [r for r in recs if r[0] == "host" and r[1] == spans.PREFIX + "request"]
-    rng = (min(r[2] for r in req), max(r[3] for r in req)) if req else None
+    req = sorted((r[2], r[3]) for r in recs if r[0] == "host" and r[1] == spans.PREFIX + "request")
+    rng = (req[0][0], max(e for _, e in req)) if req else None
     summary = trace.summarize(recs, list(span_specs), rng)
-    return summary, sp.calls, n
+    return {"summary": summary, "calls": sp.calls, "requests": n, "program": program_trace.summarize(recs, req),
+            "records": recs, "spans_missing": sp.missing}
 
 
 def run(root: Path, config: dict, traffic: dict, limits: dict, per_layer: list, seed: int, seconds: float,
-        trace_on: bool, device, t_start: float, breaker=None, controls=()) -> dict:
+        trace_on: bool, device, t_start: float, breaker=None, controls=(), keep: dict | None = None) -> dict:
     """The result line's object. `breaker` (`lib/faults.py`), for the
     tests and the control runs, wraps the request's call to plant a fault in
     the timed path. `controls` names lower-precision round trips of
     `reference/lowp.py`: the reference computed in each, in the program's
     place, is compared like the program and reported under "control" (the
-    control runs, not the cells' runs)."""
+    control runs, not the cells' runs). A traced run puts what `traced`
+    returns into `keep` where one is given (`program_spans.py`)."""
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     model = program.build_model(config, dev)
@@ -211,12 +251,15 @@ def run(root: Path, config: dict, traffic: dict, limits: dict, per_layer: list, 
     result = {"correct": False, "attempted": len(lat), "failed": failed, "metrics": {}, "device": device_info}
     if trace_on:
         span_specs = spans.load_specs(root)
-        flops = flops_per_request(model, call, clips, answers, span_specs)
-        summary, calls, n_traced = traced(model, call, clips, traffic, span_specs, dev)
+        flops, flops_by_module = flops_per_request(model, call, clips, answers, span_specs)
+        tr = traced(model, call, clips, traffic, span_specs, dev)
+        if keep is not None:
+            keep.update(tr)
+        summary, prog = tr["summary"], tr["program"]
         if cuda:
             device_info["memory_peak_bytes"] = int(max(peak_setup, peak_window, torch.cuda.max_memory_allocated()))
-        ctx = TraceContext(summary, calls, n_traced, lat, flops,
-                           counts.peaks(device_info["kind"]))
+        ctx = TraceContext(summary, tr["calls"], tr["requests"], lat, flops, counts.peaks(device_info["kind"]), prog,
+                           flops_by_module)
         for name, unit in per_layer:
             value = load_reader(root, name)(ctx)
             if value is not None:
@@ -225,9 +268,12 @@ def run(root: Path, config: dict, traffic: dict, limits: dict, per_layer: list, 
         device_info["window_s"] = summary.get("window_s", 0.0)
         if summary.get("breakdown"):
             result["breakdown"] = summary["breakdown"]
+        if tr["spans_missing"]:
+            result["spans_missing"] = tr["spans_missing"]
         print(f"trace: {summary.get('device_ops')} device ops, {summary.get('linked_share')} linked to their launch, "
               f"span device s {summary.get('span_device_s')}, "
-              f"flops a request {flops}", file=sys.stderr)
+              f"flops a request {flops}, program spans {sorted(prog['spans'])}, flops a request by module "
+              f"{ {k: v for k, v in flops_by_module.items() if k.count('.') <= 1} }", file=sys.stderr)
     else:
         result["metrics"] = e2e_metrics(clips, lat, answers, window_s, peak_window, setup_s)
     print(f"window: {len(lat)} requests in {window_s:.3f} s, latency median "

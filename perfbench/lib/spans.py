@@ -9,6 +9,13 @@ Each `perfbench/spans/<name>.json` names one span `perfbench::<name>`:
   (shape, dtype, element size of tensors; ints as they are) and copies of
   the arguments listed in `keep`.
 
+A span on a part that older programs lack (a new submodule, run on the
+parent with the new benchmark files) says `"optional": true`: where the
+program lacks that part, the span is left out and named in `Spans.missing`
+(the traced result line lists it under "spans_missing"), so its metrics
+find nothing to read. Any other span whose part is missing is an error,
+so that a metric never vanishes unseen when the program renames a part.
+
 `install` returns a `Spans` whose `close()` removes every hook and wrapper.
 A `FlopCounterMode` given to `Spans.flop_counter` has what it counts inside
 the wrapped functions subtracted into `flops_inside` (the plain versions
@@ -45,6 +52,7 @@ class Spans:
         self.recording = False
         self.flop_counter = None
         self.flops_inside = 0
+        self.missing: list[str] = []
         self._undo = []
 
     def close(self):
@@ -85,18 +93,37 @@ class Spans:
         self._undo.append(lambda: [h.remove() for h in handles])
 
 
+def _target(model: torch.nn.Module, spec: dict):
+    """The submodule or (module, attribute, function) a span names, or None
+    where the program lacks it."""
+    if "module" in spec:
+        module = model
+        for part in spec["module"].split("."):
+            module = getattr(module, part, None)
+        return module if isinstance(module, torch.nn.Module) else None
+    mod_name, attr = spec["function"].split(":")
+    try:
+        mod = importlib.import_module(mod_name)
+    except ModuleNotFoundError as exc:  # the named module itself, not one it imports
+        if exc.name != mod_name and not mod_name.startswith(f"{exc.name}."):
+            raise
+        return None
+    original = getattr(mod, attr, None)
+    return None if original is None else (mod, attr, original)
+
+
 def install(model: torch.nn.Module, specs: dict) -> Spans:
     spans = Spans()
     for name, spec in specs.items():
-        if "module" in spec:
-            module = model
-            for part in spec["module"].split("."):
-                module = getattr(module, part)
-            spans._hook(name, module)
+        target = _target(model, spec)
+        if target is None:
+            if not spec.get("optional", False):
+                raise LookupError(f"span {name}: the program has no {spec.get('module') or spec['function']}")
+            spans.missing.append(name)
+        elif "module" in spec:
+            spans._hook(name, target)
         else:
-            mod_name, attr = spec["function"].split(":")
-            mod = importlib.import_module(mod_name)
-            original = getattr(mod, attr)
+            mod, attr, original = target
             setattr(mod, attr, spans._wrap(name, original, spec))
             spans._undo.append(lambda mod=mod, attr=attr, original=original: setattr(mod, attr, original))
     return spans

@@ -15,9 +15,9 @@ beside the outside spans `perfbench::fnet`, `knn`, `corr` and
 `updateformer`, the share of the requests' device idle time put down to a
 program span, the host time of each traced request, and the CUDA calls of
 the requests by name. One JSON line a seed goes to standard output: the
-run's result, the four program-span metrics (`program_trace.metrics`) and
-the numbers above. The cells' own runs never run this; `run.py` reads no
-program span.
+run's result with its per-layer metrics, and the numbers above. The cells'
+own runs never run this; the span table is the one that their traced runs
+hand to the metric readers (`harness.traced`, `TraceContext.program`).
 """
 
 from __future__ import annotations
@@ -43,34 +43,15 @@ from perfbench.run import cell_files  # noqa: E402
 TWINS = {"encoder": "fnet", "knn": "knn", "corr": "corr", "transformer": "updateformer"}
 
 
-def traced_records(run):
-    """`run()`'s result and the records `trace.records` gave its traced requests."""
-    from perfbench.lib import trace
-
-    kept = []
-    real = trace.records
-
-    def keep(prof):
-        kept.append(real(prof))
-        return kept[-1]
-
-    trace.records = keep
-    try:
-        result = run()
-    finally:
-        trace.records = real
-    return result, kept[-1]
-
-
-def reading(recs, span_names) -> dict:
-    """Everything this script reports of one traced run's records."""
+def reading(kept: dict) -> dict:
+    """Everything this script reports of one traced run, from what
+    `harness.traced` returned (`harness.run`'s `keep`)."""
     from perfbench.lib import program_trace, spans, trace
 
+    recs, prog, n = kept["records"], kept["program"], kept["requests"]
     host = [r for r in recs if r[0] == "host"]
     requests = sorted((r[2], r[3]) for r in host if r[1] == spans.PREFIX + "request")
-    n = len(requests)
-    prog = program_trace.summarize(recs, requests)
-    outside = trace.summarize(recs, span_names, (requests[0][0], requests[-1][1]))
+    outside = kept["summary"].get("span_device_s", {})
     calls = defaultdict(lambda: [0, 0.0])
     for r in recs:
         if r[0] == "runtime" and any(lo <= r[2] <= hi for lo, hi in requests):
@@ -79,10 +60,9 @@ def reading(recs, span_names) -> dict:
     return {
         "requests": n,
         "request_ms": [(e - s) * 1e-3 for s, e in requests],
-        "metrics": program_trace.metrics(prog),
         "spans": {k: {f: v / n for f, v in row.items()} for k, row in sorted(prog["spans"].items())},
-        "twins_ms": {k: [1e3 * prog["spans"].get(k, {}).get("device_s", 0.0) / n,
-                         1e3 * outside.get("span_device_s", {}).get(v, 0.0) / n] for k, v in TWINS.items()},
+        "twins_ms": {k: [1e3 * prog["spans"].get(k, {}).get("device_s", 0.0) / n, 1e3 * outside.get(v, 0.0) / n]
+                     for k, v in TWINS.items()},
         "idle_ms": 1e3 * prog["idle_s"] / n,
         "idle_in_spans_share": prog["idle_in_spans_s"] / prog["idle_s"] if prog["idle_s"] else None,
         "blocking_calls": [[name, call, op, 1e3 * s] for (name, call, _, s), op in
@@ -113,7 +93,6 @@ def print_table(seed: int, read: dict) -> None:
         print(f"blocking call in the first request: {call} in {name} ({op}), {ms:.3f} ms", file=out)
     print("cuda calls a request (count, host ms): " + ", ".join(
         f"{k} {c / read['requests']:.1f} {ms:.3f}" for k, (c, ms) in read["cuda_calls"].items()), file=out)
-    print("metrics: " + json.dumps(read["metrics"]), file=out)
 
 
 def main(argv=None) -> int:
@@ -124,20 +103,20 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="also write every seed's JSON here")
     args = ap.parse_args(argv)
 
-    from perfbench.lib import harness, spans
+    from perfbench.lib import harness
 
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     _, config, traffic, limits, per_layer = cell_files(bench, args.workload)
-    span_names = list(spans.load_specs(HERE))
     lines = []
     for seed in (int(s) for s in args.seeds.split(",")):
-        t0 = time.perf_counter()
-        result, recs = traced_records(lambda: harness.run(HERE, config, traffic, limits, per_layer, seed,
-                                                          args.seconds, True, "cuda", t0))
-        read = reading(recs, span_names)
+        kept = {}
+        result = harness.run(HERE, config, traffic, limits, per_layer, seed, args.seconds, True, "cuda",
+                             time.perf_counter(), keep=kept)
+        read = reading(kept)
         print_table(seed, read)
+        print("metrics: " + json.dumps(result["metrics"]), file=sys.stderr)
         line = {"workload": args.workload, "seed": seed, "correct": result["correct"],
-                "result_metrics": result["metrics"], "device": result["device"], **read}
+                "metrics": result["metrics"], "device": result["device"], **read}
         lines.append(line)
         print(json.dumps(line), flush=True)
     medians = [statistics.median(x["request_ms"]) for x in lines]

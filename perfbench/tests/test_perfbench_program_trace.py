@@ -120,9 +120,13 @@ def test_records_keep_program_range_annotations_apart_from_device_operations():
 
 
 def _load_readers():
+    """The readers of the trace and the outside spans (the program-span
+    readers are `test_perfbench_program_metrics.py`'s)."""
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     out = {}
     for m in bench["per_layer"]:
+        if m["source"] == "program_span":
+            continue
         path = ROOT / "perfbench" / "metrics" / f"{m['name']}.py"
         spec = importlib.util.spec_from_file_location("program_trace_reader_" + m["name"].replace(".", "_"), path)
         mod = importlib.util.module_from_spec(spec)
