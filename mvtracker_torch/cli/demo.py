@@ -11,6 +11,15 @@ plain PyTorch path):
 - `--max_frames` cuts the clip and drops the queries that start past the cut;
 - `--depth_source est|fusion` replaces the sensor depth by the first
   `--depth_est` file, or blends them (`utils/depth_fusion.fuse_depths`);
+- `--depth_source vggt_aligned` gives the model a VGGT depth stage (the
+  `models/vggt.py::VGGT` without the point head that
+  `MVTracker(depth_estimator=...)` builds, at VGGT-1B's widths), loads
+  `--vggt_checkpoint` (a local file in the facebook/VGGT-1B layout,
+  required) through
+  `convert.load_vggt_checkpoint`, and tracks on its aligned depth
+  (`forward(..., depth_source="vggt_aligned")`, the reference's
+  `--depth_estimator vggt_aligned`); the sample's depth is not read, and
+  `--chunk_frames` and a support grid are refused;
 - `--chunk_frames` tracks a long video in boundary-chained segments of one
   shape (`EvaluationPredictor`);
 - `--ckpt_dir` loads the flagship `MVTracker` from the newest
@@ -64,12 +73,14 @@ def build_parser() -> argparse.ArgumentParser:
                         help="track long videos in fixed segments of this many frames with boundary-position chaining "
                              "(one segment shape; bounds memory like the reference's --batch_size_frames chunking)")
     parser.add_argument("--grid_size", type=int, default=0, help="support grid size")
-    parser.add_argument("--depth_source", default="gt", choices=["gt", "est", "fusion"],
+    parser.add_argument("--depth_source", default="gt", choices=["gt", "est", "fusion", "vggt_aligned"],
                         help="gt: sensor depth; est: first --depth_est replaces it; fusion: residual-weighted blend of "
-                             "sensor + all estimates")
+                             "sensor + all estimates; vggt_aligned: VGGT's depth scaled onto the given cameras")
     parser.add_argument("--depth_est", nargs="*", default=[],
                         help="NPZ files with estimated depth (key 'depth' [V,T,H,W], optional 'conf') from any external "
                              "estimator (DUSt3R/VGGT/...)")
+    parser.add_argument("--vggt_checkpoint", default=None,
+                        help="a local VGGT checkpoint (facebook/VGGT-1B layout) for --depth_source vggt_aligned")
     parser.add_argument("--device", default="cuda", help="device of the model (cuda, or cpu)")
     return parser
 
@@ -107,7 +118,12 @@ def main(argv=None) -> dict:
             logging.warning("dropping %d queries starting beyond --max_frames", (~keep).sum())
             query = query[keep]
 
-    if args.depth_source != "gt":
+    vggt = args.depth_source == "vggt_aligned"
+    if vggt and not args.vggt_checkpoint:
+        parser.error("--depth_source vggt_aligned needs --vggt_checkpoint")
+    if vggt and (args.chunk_frames or args.grid_size):
+        parser.error("--depth_source vggt_aligned tracks in one forward: no --chunk_frames, no --grid_size")
+    if args.depth_source in ("est", "fusion"):
         estimates = []
         for path in args.depth_est:
             with np.load(path) as z:
@@ -136,13 +152,27 @@ def main(argv=None) -> dict:
     if not latest:
         logging.warning("no checkpoint: using seeded random weights (demo plumbing only)")
         model.load_state_dict(random_state_dict(model, seed=0))
+    if vggt:
+        # The stage joins after the tracker's weights, so that neither the
+        # trainer's restore nor the seeded draw spans VGGT's 1.2e9 weights.
+        from mvtracker_torch.convert import load_vggt_checkpoint
+        from mvtracker_torch.models.vggt import VGGT, VGGTConfig
+
+        model.depth_estimator = VGGT(VGGTConfig(), args.device, point_head=False)
+        model.depth_estimator.load_state_dict(load_vggt_checkpoint(args.vggt_checkpoint, point_head=False))
+        logging.info("depth from VGGT (%s), aligned to the given cameras", args.vggt_checkpoint)
     model.eval()
 
     predictor = EvaluationPredictor(model, interp_shape=None, grid_size=args.grid_size, n_iters=args.iters,
                                     chunk_frames=args.chunk_frames)
     t0 = time.perf_counter()
     with torch.no_grad():
-        out = predictor(rgbs, depths, query, intrs, extrs)
+        if vggt:
+            v, t = rgbs.shape[:2]
+            out = model(rgbs, np.zeros((v, t, 0, 0), np.float32), query, intrs, extrs, iters=args.iters,
+                        depth_source="vggt_aligned")
+        else:
+            out = predictor(rgbs, depths, query, intrs, extrs)
     traj, vis = to_host(out["traj"]), to_host(out["vis"])
     dt = time.perf_counter() - t0
     logging.info("tracked %d points over %d frames in %.2fs (%.0f point-frames/s)", query.shape[0], rgbs.shape[1], dt,

@@ -71,6 +71,11 @@ class ModelConfig:
     point_transformer_depth: int = 2
     normalize_scene_in_fwd_pass: bool = False
     remat: bool = False
+    # The widths of a VGGT depth stage (`models/vggt.py::VGGTConfig`; an
+    # empty dict is VGGT-1B's) for `forward(..., depth_source=
+    # "vggt_aligned")`; None builds none. The port's own key: the JAX
+    # package's config has no such field.
+    depth_estimator: Optional[dict] = None
     # Other families' settings (the learned 2D tracker, the triplane
     # SpaTracker), kept so their presets load.
     checkpoint_2d: str = ""
@@ -138,10 +143,17 @@ def _apply(obj: Any, key: str, value: Any):
 def _merge_dict(cfg: Config, d: dict, prefix: str = ""):
     for k, v in d.items():
         key = f"{prefix}{k}"
-        if isinstance(v, dict):
+        if isinstance(v, dict) and dataclasses.is_dataclass(_lookup(cfg, key)):
             _merge_dict(cfg, v, prefix=f"{key}.")
         else:
-            _apply(cfg, key, v)
+            _apply(cfg, key, v)  # a dict-valued setting (model.depth_estimator) is set whole
+
+
+def _lookup(obj: Any, key: str) -> Any:
+    """The setting at a dotted key, None where there is none."""
+    for p in key.split("."):
+        obj = getattr(obj, p, None)
+    return obj
 
 
 def load_config(yaml_path: Optional[str] = None, overrides: Optional[list[str]] = None) -> Config:

@@ -827,17 +827,19 @@ def convert_vggt_state_dict(sd) -> dict:
 _VGGT_SKIPPED = ("track_head.", "aggregator.patch_embed.mask_token")
 
 
-def load_vggt_checkpoint(path: str) -> dict[str, torch.Tensor]:
+def load_vggt_checkpoint(path: str, point_head: bool = True) -> dict[str, torch.Tensor]:
     """A VGGT torch checkpoint (.pt/.pth/.bin, the facebook/VGGT-1B layout)
     -> the port's VGGT state dict: DINOv2's chunked block names
     (`blocks.<chunk>.<i>.`) flattened, the skipped keys dropped. Load it
-    with `VGGT(VGGTConfig()).load_state_dict(sd)`."""
+    with `VGGT(VGGTConfig()).load_state_dict(sd)`; with `point_head=False`
+    the point head's keys are dropped too, for a model built without it
+    (`VGGT(..., point_head=False)`, `MVTracker.depth_estimator`)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(ckpt, dict) and "model" in ckpt and not any(k.startswith("aggregator") for k in ckpt):
         ckpt = ckpt["model"]
     sd = {}
     for k, v in ckpt.items():
-        if k.startswith(_VGGT_SKIPPED):
+        if k.startswith(_VGGT_SKIPPED) or (not point_head and k.startswith("point_head.")):
             continue
         sd[_flatten_dino_chunks(k)] = v.float()
     return sd

@@ -53,6 +53,19 @@ While a profiler records, a forward opens the ranges `mvtracker::forward`,
 call), `::clouds`, `::feat_init` and one `::window` a window, which holds
 one `::correlation` and one `::transformer` an iteration and `::vis_head`
 (`utils/observability.py::span`); the variants' replaced stages keep them.
+
+With `depth_estimator` (the widths of a `models/vggt.py::VGGTConfig`) the
+model holds a depth stage, a `models/vggt.py::VGGT` without the point head,
+and `forward(..., depth_source="vggt_aligned")` tracks on its depth
+(`vggt.py::aligned_depth`) in place of the depth it was given (which may be empty, [V, T, 0, 0]): VGGT over the
+views of each timestep, its depth scaled into the rig's world by the
+Umeyama sim3 of its camera centres onto the given cameras, then unprojected
+through the given cameras (the reference's `--depth_estimator
+vggt_aligned`; `vggt.py`'s docstring lists where it may part from it). That
+stage opens `::depth_estimator` after `::upload`, holding
+`::vggt_patch_embed`, `::vggt_rounds`, `::vggt_camera`, `::vggt_depth_head`
+and two `::depth_align` (the input resize; the sim3, the scale and the
+resize back).
 """
 
 from __future__ import annotations
@@ -71,6 +84,7 @@ from mvtracker_torch.models.encoder import BasicEncoder
 from mvtracker_torch.models.layers import LayerNorm, Linear
 from mvtracker_torch.models.point_transformer import SerializedPointTransformer
 from mvtracker_torch.models.updateformer import EfficientUpdateFormer
+from mvtracker_torch.models import vggt as vggt_lib
 from mvtracker_torch.ops import corr as corr_ops
 from mvtracker_torch.ops import knn as knn_ops
 from mvtracker_torch.parallel import mesh as mesh_lib
@@ -208,6 +222,7 @@ class MVTracker(nn.Module):
         knn_mesh: Optional[mesh_lib.Mesh] = None,
         knn_shard_axis: str = "model",
         knn_shard_min_points: int = 2048,
+        depth_estimator: Optional[dict] = None,
         device="cuda",
     ):
         super().__init__()
@@ -310,6 +325,11 @@ class MVTracker(nn.Module):
             self.cloud_backbone = SerializedPointTransformer(
                 fmaps_dim, dim=fmaps_dim, depth=point_transformer_depth, dtype=self.dtype, device=device
             )
+        # The depth stage of `depth_source="vggt_aligned"`; None builds
+        # nothing, so the state dict is the tracker's alone.
+        self.depth_estimator = None
+        if depth_estimator is not None:
+            self.depth_estimator = vggt_lib.VGGT(vggt_lib.config_from_widths(depth_estimator), device, point_head=False)
 
     @property
     def device(self) -> torch.device:
@@ -628,9 +648,12 @@ class MVTracker(nn.Module):
     def _as_input(self, x) -> torch.Tensor:
         return to_device_fp32(x, self.device)
 
-    def forward(self, rgbs, depths, query_points, intrs, extrs, iters: int = 4, is_train: bool = False) -> dict:
+    def forward(self, rgbs, depths, query_points, intrs, extrs, iters: int = 4, is_train: bool = False,
+                depth_source: Optional[str] = None) -> dict:
         """Track the queries through the video -> {"traj" [T, N, 3], "vis"
-        [T, N], "feat_init" [N, C]}. Serving (`is_train=False`) records no
+        [T, N], "feat_init" [N, C]}. `depth_source="vggt_aligned"` tracks on
+        the depth stage's estimate in place of `depths` (a model built with
+        `depth_estimator`). Serving (`is_train=False`) records no
         autograd graph. `is_train=True` records one and adds "train_data":
         coord_predictions [W, iters, S, N, 3], vis_predictions [W, S, N]
         (logits), window_starts [W], window_valid [W], window_active [W, N].
@@ -638,7 +661,7 @@ class MVTracker(nn.Module):
         {"knn_dists_lvl{L}": [W, iters, k_L]}, the mean neighbour distance
         per rank over each window's (frame, track) grid (`consume_stats`)."""
         with span("forward"), contextlib.nullcontext() if is_train else torch.no_grad():
-            return self._forward(rgbs, depths, query_points, intrs, extrs, iters, is_train)
+            return self._forward(rgbs, depths, query_points, intrs, extrs, iters, is_train, depth_source)
 
     def _global_match(self, context_w, feat_init, query_xyz, query_t, frame_idx):
         """Window init by soft match: each track's feature against the cloud
@@ -656,9 +679,21 @@ class MVTracker(nn.Module):
         at_query = frame_idx[:, None] == query_t[None, :]
         return torch.where(at_query[..., None], query_xyz[None].expand_as(match_xyz), match_xyz)
 
-    def _forward(self, rgbs, depths, query_points, intrs, extrs, iters: int, is_train: bool) -> dict:
+    def _estimate_depth(self, rgbs, extrs, depth_source: str) -> torch.Tensor:
+        """The depth stage's [V, T, H, W] for frames and cameras on the device."""
+        if depth_source != "vggt_aligned":
+            raise ValueError(f"depth_source must be None or 'vggt_aligned', got {depth_source!r}")
+        if self.depth_estimator is None:
+            raise ValueError("depth_source='vggt_aligned' needs a model built with depth_estimator")
+        with span("depth_estimator"), torch.no_grad():
+            return vggt_lib.aligned_depth(self.depth_estimator, rgbs, extrs, self.dtype)
+
+    def _forward(self, rgbs, depths, query_points, intrs, extrs, iters: int, is_train: bool,
+                 depth_source: Optional[str] = None) -> dict:
         with span("upload"):
             rgbs, depths, query_points, intrs, extrs = map(self._as_input, (rgbs, depths, query_points, intrs, extrs))
+        if depth_source is not None:
+            depths = self._estimate_depth(rgbs, extrs, depth_source)
         v, t, h, w, _ = rgbs.shape
         n = query_points.shape[0]
         s = self.sliding_window_len

@@ -27,10 +27,40 @@ One departure: the JAX fusion pyramid upsamples each level 2x and fails to
 add it to an odd-sized finer level (a patch grid of 37 at 518 pixels). This
 one resizes each fused level to the size of the next, as the reference
 (`dpt_head.py::scratch_forward`) does; at even grids that is the same 2x.
+
+Where the JAX model, and so this one, computes otherwise than the published
+VGGT (which matters once a released checkpoint is loaded; seeded weights
+see no difference in kind): the tanh GELU where VGGT has the exact one;
+LayerNorm eps 1e-6 in the frame, global and camera blocks where VGGT has
+1e-5; the DINOv2 positional embedding resized by `jax.image.resize`'s cubic
+rule where DINOv2 calls `F.interpolate(bicubic)` with its 0.1 offset; the
+DPT fusion resizes with half-pixel centres where VGGT aligns corners, and no
+DPT UV positional embedding; the pose encoding's quaternion read scalar
+first (w, x, y, z) where VGGT writes it scalar last.
+
+`aligned_depth` runs a VGGT with the camera and depth heads only
+(`point_head=False`) as the depth stage of `MVTracker(depth_estimator=...)`
+(the reference's `--depth_estimator vggt_aligned`): one VGGT sequence a
+timestep over the V views, each view's depth scaled into the rig's world by the Umeyama sim3
+from VGGT's camera centres to the rig's (`utils/geometry.py::umeyama_sim3`).
+Where it may part from the reference's `vggt_aligned`:
+- the frames are resized on the device by `jax.image.resize`'s cubic rule
+  and clamped to [0, 1], where VGGT's own preprocessing
+  (`load_and_preprocess_images`, mode "crop") resizes with PIL's bicubic
+  and rounds to 8 bits; the size is that mode's: 518 columns and the rows
+  that keep the aspect, rounded to a multiple of 14 (294 for 288x512); a
+  frame taller than wide is refused rather than centre-cropped;
+- the depth comes back to the clip's size by the antialiased linear rule;
+- no confidence mask: every pixel keeps its estimated depth;
+- the sim3 is solved by Horn's quaternion method in float64 on the device
+  (the optimum of the reference's SVD, with no host round trip), and only
+  its scale is used: the depth is unprojected through the rig's own
+  cameras, as sensor depth is.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -41,6 +71,8 @@ import torch.nn.functional as F
 
 from mvtracker_torch.device import resolve_device
 from mvtracker_torch.ops.gsplat import quat_to_rotmat
+from mvtracker_torch.utils import geometry as geo
+from mvtracker_torch.utils.observability import span
 
 _RESNET_MEAN = (0.485, 0.456, 0.406)
 _RESNET_STD = (0.229, 0.224, 0.225)
@@ -77,6 +109,12 @@ class VGGTConfig:
             return (4, 11, 17, 23)
         q = max(self.depth // 4, 1)
         return (q - 1, 2 * q - 1, 3 * q - 1, self.depth - 1)
+
+
+def config_from_widths(widths: dict) -> VGGTConfig:
+    """A `VGGTConfig` from a configuration file's widths (lists as tuples);
+    a key it does not have raises."""
+    return VGGTConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in widths.items()})
 
 
 def tiny_config(**over) -> VGGTConfig:
@@ -293,16 +331,18 @@ class Aggregator(nn.Module):
         self.register_buffer("_resnet_mean", torch.tensor(_RESNET_MEAN).reshape(1, 3, 1, 1), persistent=False)
         self.register_buffer("_resnet_std", torch.tensor(_RESNET_STD).reshape(1, 3, 1, 1), persistent=False)
 
-    def forward(self, images: torch.Tensor) -> tuple[list[torch.Tensor], int]:
+    def forward(self, images: torch.Tensor, keep=None) -> tuple[list, int]:
         """images [B, S, H, W, 3] in [0, 1] -> (intermediates [B, S, P, 2C]
-        for every round, index of the first patch token)."""
+        for every round, index of the first patch token). With `keep` (round
+        indices) the other rounds' entries are None and never stored."""
         cfg = self.cfg
         b, s, h, w, _ = images.shape
         c = cfg.embed_dim
         x = images.reshape(b * s, h, w, 3).permute(0, 3, 1, 2)
         x = (x - self._resnet_mean) / self._resnet_std
         hp, wp = h // cfg.patch_size, w // cfg.patch_size
-        patches = self.patch_embed(x)
+        with span("vggt_patch_embed"):
+            patches = self.patch_embed(x)
 
         sel = torch.clamp(torch.arange(s, device=images.device), max=1)  # 0, 1, 1, ...
         special = torch.cat([self.camera_token[0, sel], self.register_token[0, sel]], dim=1)  # [S, 1+R, C]
@@ -319,11 +359,13 @@ class Aggregator(nn.Module):
         pos_global = pos.repeat(b, s, 1)
 
         outputs = []
-        for frame_blk, global_blk in zip(self.frame_blocks, self.global_blocks):
-            tokens = frame_blk(tokens, pos_frame)
-            frame_inter = tokens.reshape(b, s, p, c)
-            tokens = global_blk(tokens.reshape(b, s * p, c), pos_global).reshape(b * s, p, c)
-            outputs.append(torch.cat([frame_inter, tokens.reshape(b, s, p, c)], dim=-1))
+        with span("vggt_rounds"):
+            for i, (frame_blk, global_blk) in enumerate(zip(self.frame_blocks, self.global_blocks)):
+                tokens = frame_blk(tokens, pos_frame)
+                frame_inter = tokens.reshape(b, s, p, c)
+                tokens = global_blk(tokens.reshape(b, s * p, c), pos_global).reshape(b * s, p, c)
+                kept = keep is None or i in keep
+                outputs.append(torch.cat([frame_inter, tokens.reshape(b, s, p, c)], dim=-1) if kept else None)
         return outputs, patch_start
 
 
@@ -352,12 +394,14 @@ class CameraHead(nn.Module):
         b, s, _ = tokens.shape
         preds, pred = [], None
         for _ in range(self.cfg.camera_iterations):
-            inp = self.empty_pose_tokens.expand(b, s, 9) if pred is None else pred.detach()
+            # A copy, not a view: a module's input that is a view of a parameter made
+            # under no_grad breaks FlopCounterMode's module tracking.
+            inp = self.empty_pose_tokens.repeat(b, s, 1) if pred is None else pred.detach()
             shift, scale, gate = self.poseLN_modulation(self.embed_pose(inp)).chunk(3, dim=-1)
             modulated = gate * (self.adaln_norm(tokens) * (1 + scale) + shift) + tokens
             for blk in self.trunk:
                 modulated = blk(modulated)
-            delta = self.pose_branch(self.trunk_norm(modulated))
+            delta = self.pose_branch(self.trunk_norm(modulated)).float()  # accumulated in fp32 under autocast
             pred = delta if pred is None else pred + delta
             # FoV through a ReLU; translation and quaternion linear.
             preds.append(torch.cat([pred[..., :7], F.relu(pred[..., 7:])], dim=-1))
@@ -466,7 +510,7 @@ class DPTHead(nn.Module):
         x = sc.refinenet2(x, feats[1], size=feats[0].shape[2:])
         x = sc.refinenet1(x, feats[0])
         x = resize_2d(sc.output_conv1(x), (h, w), "linear")
-        x = sc.output_conv2(x).permute(0, 2, 3, 1)  # [B*S, H, W, output_dim]
+        x = sc.output_conv2(x).permute(0, 2, 3, 1).float()  # [B*S, H, W, output_dim]; activated in fp32
 
         value, conf = x[..., :-1], x[..., -1]
         if self.activation == "exp":
@@ -483,39 +527,80 @@ class DPTHead(nn.Module):
 
 class VGGT(nn.Module):
     """Aggregator with the camera, depth and point heads (the reference's
-    track head is not part of it)."""
+    track head is not part of it); `point_head=False` leaves the point head
+    out (its checkpoint keys too: `convert.load_vggt_checkpoint`)."""
 
-    def __init__(self, cfg: VGGTConfig = VGGTConfig(), device="cuda"):
+    def __init__(self, cfg: VGGTConfig = VGGTConfig(), device="cuda", point_head: bool = True):
         super().__init__()
         self.cfg = cfg
         with resolve_device(device):  # built where it runs: VGGT-1B is 1.2e9 parameters
             self.aggregator = Aggregator(cfg)
             self.camera_head = CameraHead(cfg)
             self.depth_head = DPTHead(cfg, output_dim=2, activation="exp")
-            self.point_head = DPTHead(cfg, output_dim=4, activation="inv_log")
+            self.point_head = DPTHead(cfg, output_dim=4, activation="inv_log") if point_head else None
 
     @property
     def device(self) -> torch.device:
         return self.aggregator.camera_token.device
 
     def forward(self, images: torch.Tensor) -> dict:
-        """images [B, S, H, W, 3] in [0, 1] -> predictions."""
+        """images [B, S, H, W, 3] in [0, 1] -> predictions. Of the
+        aggregator's rounds only those the heads read are kept: the DPT taps
+        and the last."""
         h, w = images.shape[2:4]
-        aggregated, patch_start = self.aggregator(images)
-        pose_enc_list = self.camera_head(aggregated)
-        depth, depth_conf = self.depth_head(aggregated, images, patch_start)
-        world_points, point_conf = self.point_head(aggregated, images, patch_start)
+        keep = set(self.cfg.intermediate_layer_idx) | {self.cfg.depth - 1}
+        aggregated, patch_start = self.aggregator(images, keep=keep)
+        with span("vggt_camera"):
+            pose_enc_list = self.camera_head(aggregated)
+        with span("vggt_depth_head"):
+            depth, depth_conf = self.depth_head(aggregated, images, patch_start)
         extr, intr = pose_encoding_to_extri_intri(pose_enc_list[-1], (h, w))
-        return {
+        out = {
             "pose_enc": pose_enc_list[-1],
             "pose_enc_list": pose_enc_list,
             "extrinsics": extr,
             "intrinsics": intr,
             "depth": depth,
             "depth_conf": depth_conf,
-            "world_points": world_points[..., :3],
-            "world_points_conf": point_conf,
         }
+        if self.point_head is not None:
+            world_points, point_conf = self.point_head(aggregated, images, patch_start)
+            out.update(world_points=world_points[..., :3], world_points_conf=point_conf)
+        return out
+
+
+def input_size(h: int, w: int, cfg: VGGTConfig) -> tuple[int, int]:
+    """VGGT's input size for an H x W frame, by its own preprocessing's
+    "crop" rule: `img_size` columns and the rows that keep the aspect,
+    rounded to a multiple of the patch size."""
+    rows = round(h * cfg.img_size / w / cfg.patch_size) * cfg.patch_size
+    if rows > cfg.img_size:
+        raise ValueError(f"a {h}x{w} frame is taller than wide: VGGT's preprocessing would crop it; not supported")
+    return rows, cfg.img_size
+
+
+def aligned_depth(model: VGGT, rgbs: torch.Tensor, extrs: torch.Tensor, dtype=None) -> torch.Tensor:
+    """The `vggt_aligned` depth stage of `MVTracker(depth_estimator=...)`
+    (the module docstring says where it may part from the reference's):
+    rgbs [V, T, H, W, 3] in 0..255 and the rig's world->camera extrs
+    [V, T, 3, 4] on the device -> depth [V, T, H, W] in the rig's world
+    units, fp32. `model` runs T sequences of the V views, under autocast to
+    `dtype` where one is given; the resizes and the alignment run fp32, the
+    Umeyama solve float64."""
+    v, t, h, w, _ = rgbs.shape
+    size = input_size(h, w, model.cfg)
+    with span("depth_align"):
+        frames = rgbs.transpose(0, 1).reshape(t * v, h, w, 3) / 255.0
+        frames = resize_2d(frames, size, "cubic", channels_last=True).clamp(0.0, 1.0).reshape(t, v, *size, 3)
+    amp = contextlib.nullcontext() if dtype is None else torch.autocast(rgbs.device.type, dtype=dtype)
+    with amp:
+        pred = model(frames)
+    depth, extr = pred["depth"][..., 0], pred["extrinsics"]  # [T, V, h', w'], [T, V, 3, 4]
+    with span("depth_align"):
+        scale, _, _ = geo.umeyama_sim3(geo.camera_centers(extr.float()), geo.camera_centers(extrs.transpose(0, 1)))
+        depth = depth * scale.to(depth.dtype)[:, None, None, None]
+        depth = resize_2d(depth.reshape(t * v, 1, *size), (h, w), "linear").reshape(t, v, h, w)
+    return depth.transpose(0, 1)
 
 
 def init_rule(name: str, shape: tuple, cfg: VGGTConfig) -> tuple[str, float]:

@@ -206,3 +206,60 @@ def reduce_masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None, keepdim: b
     if dim is None:
         return prod.sum() / (mask.sum() + eps)
     return prod.sum(dim=dim, keepdim=keepdim) / (mask.sum(dim=dim, keepdim=keepdim) + eps)
+
+
+def camera_centers(extrs: torch.Tensor) -> torch.Tensor:
+    """World positions [..., 3] of the cameras of world->camera extrinsics
+    [..., 3, 4] with a rotation block: -R^T t."""
+    return -torch.einsum("...ij,...i->...j", extrs[..., :3], extrs[..., 3])
+
+
+def umeyama_sim3(src: torch.Tensor, dst: torch.Tensor):
+    """The sim3 (s [B], R [B, 3, 3], t [B, 3]) minimizing |dst - (s R src + t)|
+    over point sets src, dst [B, N, 3], batched and on their device, in
+    float64 (Umeyama 1991; `datasets/datapoint.py::align_umeyama` gives the
+    same by an SVD on the host).
+
+    The rotation is Horn's: the unit quaternion of the largest eigenvalue of
+    the 4x4 symmetric matrix built from the cross-covariance M, a proper
+    rotation whatever the reflection SVD's sign fix guards against. The
+    eigenvector is found without a host round trip (a linear-algebra solver
+    would check its status on the host): (N + |N|_F I), which has the same
+    eigenvectors and no negative eigenvalue, is squared 24 times (its power
+    2^24) with renormalization, and the column of the result with the largest
+    diagonal entry is taken. That eigenvalue is trace(R^T M), Umeyama's
+    trace(D S), so the scale is it over the source's summed squared
+    deviation. Degenerate sets (fewer than three distinct non-collinear
+    points) have no unique rotation, here as with the SVD."""
+    src, dst = src.double(), dst.double()
+    mu_s, mu_d = src.mean(-2), dst.mean(-2)
+    a, b = src - mu_s[..., None, :], dst - mu_d[..., None, :]
+    m = torch.einsum("...ni,...nj->...ij", b, a)  # sum_n b_n a_n^T
+    sxx, sxy, sxz = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    syx, syy, syz = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    szx, szy, szz = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    # Horn's N for R a = b (quaternion w, x, y, z): q^T N q = trace(R(q)^T M).
+    n = torch.stack([
+        torch.stack([sxx + syy + szz, szy - syz, sxz - szx, syx - sxy], -1),
+        torch.stack([szy - syz, sxx - syy - szz, sxy + syx, szx + sxz], -1),
+        torch.stack([sxz - szx, sxy + syx, syy - sxx - szz, syz + szy], -1),
+        torch.stack([syx - sxy, szx + sxz, syz + szy, szz - sxx - syy], -1),
+    ], -2)
+    eye = torch.eye(4, dtype=n.dtype, device=n.device)
+    p = n + torch.linalg.matrix_norm(n)[..., None, None].clamp_min(1e-300) * eye
+    for _ in range(24):
+        p = p @ p
+        p = p / torch.linalg.matrix_norm(p)[..., None, None].clamp_min(1e-300)
+    col = torch.diagonal(p, dim1=-2, dim2=-1).argmax(-1)
+    q = torch.take_along_dim(p, col[..., None, None], dim=-1)[..., 0]
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q.unbind(-1)
+    r = torch.stack([
+        torch.stack([w * w + x * x - y * y - z * z, 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), w * w - x * x + y * y - z * z, 2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), w * w - x * x - y * y + z * z], -1),
+    ], -2)
+    trace = torch.einsum("...ij,...ij->...", r, m)  # the largest eigenvalue of N
+    scale = trace / (a * a).sum((-2, -1))
+    t = mu_d - scale[..., None] * torch.einsum("...ij,...j->...i", r, mu_s)
+    return scale, r, t

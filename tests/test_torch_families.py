@@ -24,6 +24,7 @@ from mvtracker_torch.models.mvtracker import MVTracker
 from mvtracker_torch.models.spatracker import MultiViewSpaTracker
 from mvtracker_torch.training.train import TrainConfig, Trainer
 from mvtracker_tpu import config as j_config
+from tests.test_torch_config_cli import as_jax_has_it
 
 ROOT = Path(__file__).resolve().parent.parent
 ZOO = t_config.MONOCULAR_BASELINES
@@ -96,7 +97,7 @@ def test_support_memory_defaults_per_family():
 def test_other_presets_load_like_jax(path):
     got, want = t_config.load_config(str(ROOT / path)), j_config.load_config(str(ROOT / path))
     for section in ("model", "data", "eval"):
-        assert dataclasses.asdict(getattr(got, section)) == dataclasses.asdict(getattr(want, section)), section
+        assert as_jax_has_it(section, getattr(got, section)) == dataclasses.asdict(getattr(want, section)), section
 
 
 def test_checkpoint_2d_loads(tmp_path):
