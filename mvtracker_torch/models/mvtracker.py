@@ -53,6 +53,11 @@ While a profiler records, a forward opens the ranges `mvtracker::forward`,
 call), `::clouds`, `::feat_init` and one `::window` a window, which holds
 one `::correlation` and one `::transformer` an iteration and `::vis_head`
 (`utils/observability.py::span`); the variants' replaced stages keep them.
+Where the transformer replays a CUDA graph (`models/updateformer.py`: on
+CUDA, serving, once per forward and input shape), `::transformer` holds the
+graph launch in `::transformer_capture` (the forward's first call, which
+captured it) or `::transformer_replay`; the graph and its static tensors
+are the forward's own and go when it returns.
 
 With `depth_estimator` (the widths of a `models/vggt.py::VGGTConfig`) the
 model holds a depth stage, a `models/vggt.py::VGGT` without the point head,
@@ -630,7 +635,11 @@ class MVTracker(nn.Module):
                 fcorrs = corr_features(context_w, coords, ffeats, knn_cache, stats)
             flows_emb = emb.coord_embedding_3d(coords - coords[0:1], self.flow_embed_dim)
             x = torch.cat([flows_emb, fcorrs, ffeats, mask_and_vis], dim=-1)
-            x = x + pos_embed[None] + times_embed[:, None]
+            x = x + pos_embed[None]
+            # Where the transformer replays a graph, x is finished in the
+            # graph's static input, so no second copy is made.
+            buf = self.updateformer.graph.input_buffer((s, n, d_in), x.dtype, x.device)
+            x = x + times_embed[:, None] if buf is None else torch.add(x, times_embed[:, None], out=buf)
             with span("transformer"):
                 delta = self._maybe_remat(True, self.updateformer, x.permute(1, 0, 2)[None], track_mask=active[None])[0]
             delta = delta.permute(1, 0, 2)  # [S, N, 3 + C]
@@ -660,7 +669,7 @@ class MVTracker(nn.Module):
         With `collect_stats` the output also holds "knn_stats":
         {"knn_dists_lvl{L}": [W, iters, k_L]}, the mean neighbour distance
         per rank over each window's (frame, track) grid (`consume_stats`)."""
-        with span("forward"), contextlib.nullcontext() if is_train else torch.no_grad():
+        with span("forward"), contextlib.nullcontext() if is_train else torch.no_grad(), self.updateformer.graph.scope():
             return self._forward(rgbs, depths, query_points, intrs, extrs, iters, is_train, depth_source)
 
     def _global_match(self, context_w, feat_init, query_xyz, query_t, frame_idx):

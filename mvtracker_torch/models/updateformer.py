@@ -25,9 +25,20 @@ B x (N x T) flattened tokens, in fp32 whatever the compute dtype, with
 inactive tracks masked in (track, time) order. The bank is a parameter; the
 reference's residual updates of it across windows are dropped, as in the
 JAX module.
+
+Inside `graph.scope()` (every `MVTracker.forward` opens one), a call on CUDA
+with autograd off and no `TorchDispatchMode` active is replayed from a CUDA
+graph (`CallGraph`): captured at the scope's first call of its signature,
+replayed for the later ones, so that a call's hundreds of small ops cost
+the host one graph launch rather than one dispatch each. The graph runs
+the eager code's own kernels on the same inputs, so its outputs are the
+eager call's to the bit. Every other call (training, the CPU,
+`FlopCounterMode`, which does not see a replay) runs the eager code.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +46,7 @@ from torch import nn
 
 from mvtracker_torch.models.layers import LayerNorm, Linear, layer_norm_noaffine
 from mvtracker_torch.models.loftr import LocalFeatureTransformer
+from mvtracker_torch.utils.observability import span
 
 
 class Attention(nn.Module):
@@ -107,6 +119,107 @@ class CrossAttnBlock(nn.Module):
         return x + self.mlp(layer_norm_noaffine(x))
 
 
+class CallGraph:
+    """One CUDA graph of a module's call, alive for one scope.
+
+    `scope()` brackets a stretch of calls (one `MVTracker.forward`). Inside
+    it, `engages(device)` says whether a call replays: on CUDA, with
+    autograd off (a replay records no graph) and no `TorchDispatchMode`
+    active (a mode sees none of a replay's ops). The first such call of a
+    signature (input shape, dtype and device; the mask's shape, or none)
+    captures the eager call on a side stream and replays it; later calls of
+    that signature only replay. A different signature captures anew.
+
+    Memory: the static input, mask and output live until the scope closes,
+    so nothing of them is held between forwards. The caller may build its
+    input in `input_buffer` and pass a view of it, which the graph then
+    reads in place; any other input is copied into a static tensor of its
+    own layout, so that the graph runs the kernels the eager call would.
+    The graphs share one memory pool across scopes, so a capture reuses the
+    blocks of the last one rather than calling `cudaMalloc`; the
+    last graph is kept past its scope (it is never replayed again), since a
+    pool that no graph holds may not be captured into again. cuBLAS's
+    workspaces are dropped around each capture, so that the capture
+    stream's workspace lives in that pool and is not held besides.
+
+    While a profiler records, the graph launch of a call that captured opens
+    `mvtracker::<name>_capture` and that of a call that only replays
+    `mvtracker::<name>_replay`. They hold the launch alone: the capture
+    itself, which launches nothing, stays in the caller's span, whose idle
+    it is."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.depth = 0  # open scopes
+        self.pool = None
+        self.stream = None
+        self.graph = None
+        self.key = None  # signature of `graph` while its static tensors live
+        self.buf = self.x = self.mask = self.out = None
+
+    @contextlib.contextmanager
+    def scope(self):
+        self.depth += 1
+        try:
+            yield
+        finally:
+            self.depth -= 1
+            if self.depth == 0:
+                self.key = self.buf = self.x = self.mask = self.out = None
+
+    def engages(self, device: torch.device) -> bool:
+        return (self.depth > 0 and device.type == "cuda" and not torch.is_grad_enabled()
+                and torch._C._len_torch_dispatch_stack() == 0)
+
+    def input_buffer(self, shape, dtype, device):
+        """A tensor of `shape` to build the next call's input in, or None
+        where that call runs eagerly."""
+        if not self.engages(device):
+            return None
+        if self.buf is None or self.buf.shape != shape or self.buf.dtype != dtype or self.buf.device != device:
+            self.buf = torch.empty(shape, dtype=dtype, device=device)
+        return self.buf
+
+    def __call__(self, fn, x, mask=None):
+        """`fn(x, mask)`, replayed; the output is the graph's static output,
+        valid until the next call."""
+        key = (tuple(x.shape), x.stride(), x.dtype, x.device, None if mask is None else tuple(mask.shape))
+        captured = key != self.key
+        if captured:
+            in_buf = self.buf is not None and x.data_ptr() == self.buf.data_ptr()
+            self.x = x if in_buf else torch.empty_like(x)
+            self.mask = None if mask is None else torch.empty_like(mask)
+        if x.data_ptr() != self.x.data_ptr():
+            self.x.copy_(x)
+        if mask is not None:
+            self.mask.copy_(mask)
+        if captured:
+            self._capture(fn)
+            self.key = key
+        with span(self.name + ("_capture" if captured else "_replay")):
+            self.graph.replay()
+        return self.out
+
+    def _capture(self, fn):
+        dev = self.x.device
+        if self.stream is None:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(dev)
+        self.out = None  # its block goes back to the pool for this capture
+        graph = torch.cuda.CUDAGraph()
+        torch._C._cuda_clearCublasWorkspaces()
+        self.stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+            try:
+                out = fn(self.x, self.mask)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(self.stream)
+        torch._C._cuda_clearCublasWorkspaces()
+        self.graph, self.out = graph, out
+
+
 class EfficientUpdateFormer(nn.Module):
     """Factorized space/time transformer over [B, N, T, C_in] track tokens
     -> [B, N, T, output_dim] fp32. `track_mask` [B, N] bool hides inactive
@@ -152,6 +265,7 @@ class EfficientUpdateFormer(nn.Module):
                 torch.full((1, support_memory_tokens, hidden_size), 0.1, device=device)
             )
             self.gnn = LocalFeatureTransformer(hidden_size, nhead=4, attention=support_memory_attention, device=device)
+        self.graph = CallGraph("transformer")
         # flow_head.{0,2,4} are the Linear layers, in fp32 like the JAX head.
         self.flow_head = nn.Sequential(
             Linear(hidden_size, output_dim, device=device),
@@ -162,6 +276,11 @@ class EfficientUpdateFormer(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, track_mask=None) -> torch.Tensor:
+        if self.graph.engages(x.device):
+            return self.graph(self._forward, x, track_mask)
+        return self._forward(x, track_mask)
+
+    def _forward(self, x: torch.Tensor, track_mask=None) -> torch.Tensor:
         b, n, t, _ = x.shape
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
