@@ -218,16 +218,15 @@ import sys
 import tempfile
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
 
-ROOT = Path(__file__).resolve().parent
+from scripts import timing_torch
 
-# Published peaks of one H100 SXM (NVIDIA data sheet) for the bound.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+ROOT = Path(__file__).resolve().parent
 
 # Flagship request shape (as the JAX package's benchmark, `bench.py`).
 V, T, H, W, N_QUERIES = 4, 24, 256, 256, 256
@@ -394,58 +393,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def wrapper_ms(fn, reps: int, warmup: int = 2) -> float:
-    """ms per call of `fn` called back to back from Python, CUDA events
-    around the loop: the device time or the host's work per call (wrapper,
-    ctypes, device guard), whichever paces the loop."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms(fn, reps: int, replays: int = 3) -> float:
-    """Device ms per call of `fn`: `reps` calls captured in one CUDA graph,
-    the graph replayed `replays` times between CUDA events. A replay needs no
-    host work per launch, so this is the kernels' own time, back to back."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (replays * reps)
-    del graph
-    torch.cuda.empty_cache()
-    return ms
-
-
 def bound(bytes_moved: float, ops: float):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    """The shorter time in ms a kernel can take at one H100 SXM's published
+    peaks, and what bounds it ("bytes" or "operations")."""
+    peak = timing_torch.PEAKS["NVIDIA H100 80GB HBM3"]
+    t_bytes = bytes_moved / peak["hbm_bytes_per_s"] * 1e3
+    t_ops = ops / peak["fp32_flops"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -540,11 +493,11 @@ def phase_kernels(torch, knn_ops, corr_ops, gen):
     for label, b, n, m, k, per_fwd in knn_shapes:
         ref, query = cloud(b, n), queries(b, m)
         st["err"] = max(st["err"], check_knn(knn_ops, ref, query, k))
-        ms = device_ms(lambda: knn_ops.knn_cuda(ref, query, k), reps=50)
-        host = wrapper_ms(lambda: knn_ops.knn_cuda(ref, query, k), reps=50)
-        plain = device_ms(lambda: knn_ops.knn_plain(ref, query, k), reps=5)
+        ms = timing_torch.device_ms(lambda: knn_ops.knn_cuda(ref, query, k), reps=50)
+        host = timing_torch.event_ms(lambda: knn_ops.knn_cuda(ref, query, k), "cuda", 50)
+        plain = timing_torch.device_ms(lambda: knn_ops.knn_plain(ref, query, k), reps=5)
         bnd, by = knn_bound(b, n, m, k)
-        log(f"K1 knn {label}: B={b} N={n} M={m} k={k} kernel_ms={ms:.5f} wrapper_ms={host:.5f} "
+        log(f"K1 knn {label}: B={b} N={n} M={m} k={k} kernel_ms={ms:.5f} event_ms={host:.5f} "
             f"plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}) launches/forward={per_fwd}")
         add_row(st, ms, plain, bnd, by, per_fwd)
     # Edge cases: fewer points than k, and a scene far from the origin.
@@ -566,17 +519,17 @@ def phase_kernels(torch, knn_ops, corr_ops, gen):
         n, m = LARGE_POINTS, N_QUERIES
         ref, query = cloud(b, n), queries(b, m)
         st["err"] = max(st["err"], check_knn(knn_ops, ref, query, k, knn_ops.knn_tiled_cuda, max_elems=big))
-        ms = device_ms(lambda: knn_ops.knn_tiled_cuda(ref, query, k), reps=10)
-        host = wrapper_ms(lambda: knn_ops.knn_tiled_cuda(ref, query, k), reps=10)
-        fused = device_ms(lambda: knn_ops.knn_cuda(ref, query, k), reps=10)
+        ms = timing_torch.device_ms(lambda: knn_ops.knn_tiled_cuda(ref, query, k), reps=10)
+        host = timing_torch.event_ms(lambda: knn_ops.knn_tiled_cuda(ref, query, k), "cuda", 10)
+        fused = timing_torch.device_ms(lambda: knn_ops.knn_cuda(ref, query, k), reps=10)
         # Tens of ms of large PyTorch kernels: timed as called, no graph.
-        plain = wrapper_ms(lambda: knn_ops.knn_plain(ref, query, k, max_elems=big), reps=2, warmup=1)
+        plain = timing_torch.event_ms(lambda: knn_ops.knn_plain(ref, query, k, max_elems=big), "cuda", 2, warm=1)
         bnd, by = knn_bound(b, n, m, k)
         resident = knn_ops.tiled_resident_blocks(0, k == 1)
         splits, span = knn_ops.tiled_plan(b, n, m, resident)
         log(f"K4 knn_tiled {label}: B={b} N={n} M={m} k={k} resident_blocks={resident} splits={splits} span={span} "
             f"kernel_ms={ms:.5f} "
-            f"wrapper_ms={host:.5f} fused_kernel_ms={fused:.5f} plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}) "
+            f"event_ms={host:.5f} fused_kernel_ms={fused:.5f} plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}) "
             f"launches/request={per_req}")
         add_row(st, ms, plain, bnd, by, per_req)
     # Edge cases: few queries and many spans, a cloud that ends inside a
@@ -599,13 +552,13 @@ def phase_kernels(torch, knn_ops, corr_ops, gen):
     ties = int((d_exact[..., 1:] == d_exact[..., :-1]).sum())
     if ties == 0:
         raise AssertionError("the exact-kNN check input holds no ties")
-    ms = device_ms(lambda: knn_ops.knn_exact_cuda(ref, query, k), reps=5)
-    host = wrapper_ms(lambda: knn_ops.knn_exact_cuda(ref, query, k), reps=5)
-    fused = device_ms(lambda: knn_ops.knn_cuda(ref, query, k), reps=5)
-    plain = wrapper_ms(lambda: knn_ops.knn_exact_plain(ref, query, k, max_elems=big), reps=2, warmup=1)
+    ms = timing_torch.device_ms(lambda: knn_ops.knn_exact_cuda(ref, query, k), reps=5)
+    host = timing_torch.event_ms(lambda: knn_ops.knn_exact_cuda(ref, query, k), "cuda", 5)
+    fused = timing_torch.device_ms(lambda: knn_ops.knn_cuda(ref, query, k), reps=5)
+    plain = timing_torch.event_ms(lambda: knn_ops.knn_exact_plain(ref, query, k, max_elems=big), "cuda", 2, warm=1)
     bnd, by = knn_bound(1, n, m, k)
     log(f"K5 knn_exact direct: B=1 N={n} M={m} k={k} ({ties} tied neighbour pairs) kernel_ms={ms:.5f} "
-        f"wrapper_ms={host:.5f} fused_kernel_ms={fused:.5f} plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}) "
+        f"event_ms={host:.5f} fused_kernel_ms={fused:.5f} plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}) "
         f"launches/call=1")
     add_row(st, ms, plain, bnd, by, 1)
     for b, n, m, k in ((2, 4099, 33, 1), (2, 700, 17, 32), (2, 6, 11, 8)):
@@ -639,9 +592,9 @@ def phase_kernels(torch, knn_ops, corr_ops, gen):
             st["err"] = max(st["err"], err)
             if dt_name != "bfloat16":
                 continue  # the path streams a bf16 cloud; time that
-            ms = device_ms(lambda: corr_ops.corr_select_cuda(fvec, targets, idx), reps=100)
-            host = wrapper_ms(lambda: corr_ops.corr_select_cuda(fvec, targets, idx), reps=100)
-            plain = device_ms(lambda: corr_ops.corr_select_plain(fvec, targets, idx), reps=20)
+            ms = timing_torch.device_ms(lambda: corr_ops.corr_select_cuda(fvec, targets, idx), reps=100)
+            host = timing_torch.event_ms(lambda: corr_ops.corr_select_cuda(fvec, targets, idx), "cuda", 100)
+            plain = timing_torch.device_ms(lambda: corr_ops.corr_select_plain(fvec, targets, idx), reps=20)
             rows = sum(int(torch.unique(idx[b]).numel()) for b in range(s))
             # Bytes: the distinct rows (bf16), the targets at the fp32 width the
             # kernel reads them, the int64 indices and the fp32 output.
@@ -649,7 +602,7 @@ def phase_kernels(torch, knn_ops, corr_ops, gen):
             bnd, by = bound(nbytes, 2.0 * idx.numel() * c)
             per_fwd = 3 * ITERS
             log(f"K2 corr level{lvl}: fvec=[{s},{p},{c}] bf16 targets fp32 idx=[{s},{N_QUERIES},16] "
-                f"kernel_ms={ms:.5f} wrapper_ms={host:.5f} plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}, {rows} "
+                f"kernel_ms={ms:.5f} event_ms={host:.5f} plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}, {rows} "
                 f"distinct rows, targets counted at fp32) launches/forward={per_fwd}")
             add_row(st, ms, plain, bnd, by, per_fwd)
     log(f"K2 corr checks passed: max abs error {st['err']:.3e} (tol {CORR_TOL}); a second run and targets cast "
@@ -692,16 +645,16 @@ def phase_kernels(torch, knn_ops, corr_ops, gen):
                 f"(values up to {float(want_fvec.float().abs().max()):.1f}), two runs give the same bits")
             if dt_name != "bfloat16":
                 continue  # the path's residuals are a bf16 cloud and fp32 targets; time that
-            ms = device_ms(lambda: corr_ops.corr_select_backward_cuda(fvec, targets, idx, g), reps=50)
-            host = wrapper_ms(lambda: corr_ops.corr_select_backward_cuda(fvec, targets, idx, g), reps=50)
-            plain = device_ms(lambda: corr_ops.corr_select_backward_plain(fvec, targets, idx, g), reps=10)
+            ms = timing_torch.device_ms(lambda: corr_ops.corr_select_backward_cuda(fvec, targets, idx, g), reps=50)
+            host = timing_torch.event_ms(lambda: corr_ops.corr_select_backward_cuda(fvec, targets, idx, g), "cuda", 50)
+            plain = timing_torch.device_ms(lambda: corr_ops.corr_select_backward_plain(fvec, targets, idx, g), reps=10)
             rows = sum(int(torch.unique(idx[b]).numel()) for b in range(s))
             nbytes = (rows * c * 2 + g.numel() * 4 + idx.numel() * 8 + targets.numel() * 4
                       + fvec.numel() * 2 + targets.numel() * 4)  # reads, then the dense d_fvec and d_targets
             bnd, by = bound(nbytes, 4.0 * idx.numel() * c)
             per_step = 3 * ITERS
             log(f"K3 corr_bwd level{lvl}: fvec=[{s},{p},{c}] bf16 targets fp32 g=[{s},{N_QUERIES},16] "
-                f"function_ms={ms:.5f} wrapper_ms={host:.5f} "
+                f"function_ms={ms:.5f} event_ms={host:.5f} "
                 f"plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}, {rows} distinct rows) launches/step={per_step}")
             add_row(st, ms, plain, bnd, by, per_step)
     log(f"K3 corr_bwd checks passed: max abs error {st['err']:.3e} in fp32 (tol {CORR_BWD_ATOL}; a bf16 d_fvec "
@@ -739,11 +692,11 @@ def phase_kernels_evaluation(torch, knn_ops, corr_ops, gen, stats):
     for label, b, n, m, kk, per_req in knn_shapes:
         ref, query = cloud(b, n), queries(b, m)
         st["err"] = max(st["err"], check_knn(knn_ops, ref, query, kk))
-        ms = device_ms(lambda: knn_ops.knn_cuda(ref, query, kk), reps=50)
-        host = wrapper_ms(lambda: knn_ops.knn_cuda(ref, query, kk), reps=50)
-        plain = device_ms(lambda: knn_ops.knn_plain(ref, query, kk), reps=5)
+        ms = timing_torch.device_ms(lambda: knn_ops.knn_cuda(ref, query, kk), reps=50)
+        host = timing_torch.event_ms(lambda: knn_ops.knn_cuda(ref, query, kk), "cuda", 50)
+        plain = timing_torch.device_ms(lambda: knn_ops.knn_plain(ref, query, kk), reps=5)
         bnd, by = knn_bound(b, n, m, kk)
-        log(f"K1 knn evaluation {label}: B={b} N={n} M={m} k={kk} kernel_ms={ms:.5f} wrapper_ms={host:.5f} "
+        log(f"K1 knn evaluation {label}: B={b} N={n} M={m} k={kk} kernel_ms={ms:.5f} event_ms={host:.5f} "
             f"plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}) launches/request={per_req}")
     log(f"K1 knn evaluation shapes passed: max abs distance error {st['err']:.3e}")
 
@@ -766,14 +719,14 @@ def phase_kernels_evaluation(torch, knn_ops, corr_ops, gen, stats):
         if err > tol or not torch.equal(corr_ops.corr_select_cuda(fvec, targets, idx), got):
             raise AssertionError(f"corr evaluation {label}: max err {err:.3e} (tol {tol}), or a second run differs")
         st["err"] = max(st["err"], err)
-        ms = device_ms(lambda: corr_ops.corr_select_cuda(fvec, targets, idx), reps=100)
-        host = wrapper_ms(lambda: corr_ops.corr_select_cuda(fvec, targets, idx), reps=100)
-        plain = device_ms(lambda: corr_ops.corr_select_plain(fvec, targets, idx), reps=20)
+        ms = timing_torch.device_ms(lambda: corr_ops.corr_select_cuda(fvec, targets, idx), reps=100)
+        host = timing_torch.event_ms(lambda: corr_ops.corr_select_cuda(fvec, targets, idx), "cuda", 100)
+        plain = timing_torch.device_ms(lambda: corr_ops.corr_select_plain(fvec, targets, idx), reps=20)
         rows = sum(int(torch.unique(idx[b]).numel()) for b in range(s))
         nbytes = rows * c * fvec.element_size() + targets.numel() * 4 + idx.numel() * 8 + idx.numel() * 4
         bnd, by = bound(nbytes, 2.0 * idx.numel() * c)
         log(f"K2 corr evaluation {label}: fvec=[{s},{p},{c}] {str(dt)[6:]} targets fp32 idx=[{s},{n},{k}] "
-            f"kernel_ms={ms:.5f} wrapper_ms={host:.5f} plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}, {rows} "
+            f"kernel_ms={ms:.5f} event_ms={host:.5f} plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}, {rows} "
             f"distinct rows) launches/request={per_req}")
     log(f"K2 corr evaluation shapes passed: max abs error {st['err']:.3e}; a second run gives the same bits")
 
@@ -816,11 +769,11 @@ def phase_kernels_options(torch, knn_ops, corr_ops, gen, stats):
             d = knn_ops.knn_cuda(ref, query, kk)[0]
             if not (bool((d[3] > 1e8).all()) and bool((d[:3] < 1e8).all())):
                 raise AssertionError("knn on the sentinel cloud: real points do not come first")
-        ms = device_ms(lambda: knn_ops.knn_cuda(ref, query, kk), reps=50)
-        host = wrapper_ms(lambda: knn_ops.knn_cuda(ref, query, kk), reps=50)
-        plain = device_ms(lambda: knn_ops.knn_plain(ref, query, kk), reps=5)
+        ms = timing_torch.device_ms(lambda: knn_ops.knn_cuda(ref, query, kk), reps=50)
+        host = timing_torch.event_ms(lambda: knn_ops.knn_cuda(ref, query, kk), "cuda", 50)
+        plain = timing_torch.device_ms(lambda: knn_ops.knn_plain(ref, query, kk), reps=5)
         bnd, by = knn_bound(b, n, m, kk)
-        log(f"K1 knn options {label}: B={b} N={n} M={m} k={kk} kernel_ms={ms:.5f} wrapper_ms={host:.5f} "
+        log(f"K1 knn options {label}: B={b} N={n} M={m} k={kk} kernel_ms={ms:.5f} event_ms={host:.5f} "
             f"plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}) launches/request={per_req}")
     log(f"K1 knn option shapes passed: max abs distance error {st['err']:.3e}; on the sentinel cloud the exact "
         f"kernel's indices equal the stable sort's")
@@ -842,14 +795,14 @@ def phase_kernels_options(torch, knn_ops, corr_ops, gen, stats):
                 raise AssertionError(f"corr K={k} {label} {dt_name}: max err {err:.3e} (tol {tol}), or a second run "
                                      "or targets cast first differ")
             st["err"] = max(st["err"], err)
-            ms = device_ms(lambda: corr_ops.corr_select_cuda(fvec, targets, idx), reps=100)
-            host = wrapper_ms(lambda: corr_ops.corr_select_cuda(fvec, targets, idx), reps=100)
-            plain = device_ms(lambda: corr_ops.corr_select_plain(fvec, targets, idx), reps=20)
+            ms = timing_torch.device_ms(lambda: corr_ops.corr_select_cuda(fvec, targets, idx), reps=100)
+            host = timing_torch.event_ms(lambda: corr_ops.corr_select_cuda(fvec, targets, idx), "cuda", 100)
+            plain = timing_torch.device_ms(lambda: corr_ops.corr_select_plain(fvec, targets, idx), reps=20)
             rows = sum(int(torch.unique(idx[b]).numel()) for b in range(s))
             nbytes = rows * c * fvec.element_size() + targets.numel() * 4 + idx.numel() * 8 + idx.numel() * 4
             bnd, by = bound(nbytes, 2.0 * idx.numel() * c)
             log(f"K2 corr options {label} {dt_name}: fvec=[{s},{p},{c}] targets fp32 idx=[{s},{n},{k}] "
-                f"kernel_ms={ms:.5f} wrapper_ms={host:.5f} plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}, {rows} "
+                f"kernel_ms={ms:.5f} event_ms={host:.5f} plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}, {rows} "
                 f"distinct rows) launches/request={per_req}; a second run and targets cast first give the same bits")
 
     st = stats["corr_bwd"]
@@ -876,15 +829,15 @@ def phase_kernels_options(torch, knn_ops, corr_ops, gen, stats):
         if not (torch.equal(again_fvec, d_fvec) and torch.equal(again_targets, d_targets)):
             raise AssertionError(f"corr backward K={k} {dt_name}: two runs on one input differ")
         st["err"] = max(st["err"], err_t)
-        ms = device_ms(lambda: corr_ops.corr_select_backward_cuda(fvec, targets, idx, g), reps=50)
-        host = wrapper_ms(lambda: corr_ops.corr_select_backward_cuda(fvec, targets, idx, g), reps=50)
-        plain = device_ms(lambda: corr_ops.corr_select_backward_plain(fvec, targets, idx, g), reps=10)
+        ms = timing_torch.device_ms(lambda: corr_ops.corr_select_backward_cuda(fvec, targets, idx, g), reps=50)
+        host = timing_torch.event_ms(lambda: corr_ops.corr_select_backward_cuda(fvec, targets, idx, g), "cuda", 50)
+        plain = timing_torch.device_ms(lambda: corr_ops.corr_select_backward_plain(fvec, targets, idx, g), reps=10)
         rows = sum(int(torch.unique(idx[b]).numel()) for b in range(s))
         nbytes = (rows * c * fvec.element_size() + g.numel() * 4 + idx.numel() * 8 + targets.numel() * 4
                   + fvec.numel() * fvec.element_size() + targets.numel() * 4)
         bnd, by = bound(nbytes, 4.0 * idx.numel() * c)
         log(f"K3 corr_bwd options protocol training level0 {dt_name}: fvec=[{s},{p},{c}] targets fp32 g=[{s},{n},{k}] "
-            f"function_ms={ms:.5f} wrapper_ms={host:.5f} plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}, {rows} "
+            f"function_ms={ms:.5f} event_ms={host:.5f} plain_ms={plain:.5f} bound_ms={bnd:.5f} ({by}, {rows} "
             f"distinct rows) d_fvec max err {float(gap_f.max()):.3e}, d_targets {err_t:.3e}; two runs give the same "
             f"bits; launches/step={windows * PROTOCOL_ITERS}")
 
@@ -960,7 +913,7 @@ def cpu_forward_beside(model, scene, iters):
     return beside_cpu(cpu_forward, pickle.dumps(copy.deepcopy(model).cpu()), [np.asarray(a) for a in scene], iters)
 
 
-def phase_main_path(torch, MVTracker, random_state_dict, make_scene, knn_ops, corr_ops):
+def phase_main_path(torch, MVTracker, random_state_dict, make_scene):
     """Phase 3: 3 flagship-width bf16 requests; returns launch totals."""
     dev = torch.device("cuda")
     before = torch.cuda.memory_allocated()
@@ -971,11 +924,10 @@ def phase_main_path(torch, MVTracker, random_state_dict, make_scene, knn_ops, co
     resident = torch.cuda.memory_allocated()
     log(f"allocated before the model {before / 2**20:.1f} MiB; with weights and 3 scenes {resident / 2**20:.1f} MiB")
     torch.cuda.reset_peak_memory_stats()
-    knn_ops.knn_cuda.launches = 0
-    corr_ops.corr_select_cuda.launches = 0
+    mark = timing_torch.launches()
     times = []
     for seed, scene in enumerate(scenes):
-        k1, k2 = knn_ops.knn_cuda.launches, corr_ops.corr_select_cuda.launches
+        was = timing_torch.launches()
         t0 = time.perf_counter()
         out = model(*scene, iters=ITERS)
         torch.cuda.synchronize()
@@ -985,12 +937,13 @@ def phase_main_path(torch, MVTracker, random_state_dict, make_scene, knn_ops, co
             raise AssertionError(f"bad output shapes {tuple(traj.shape)}, {tuple(vis.shape)}")
         if not (bool(torch.isfinite(traj).all()) and bool(torch.isfinite(vis).all())):
             raise AssertionError("non-finite outputs")
-        d1 = knn_ops.knn_cuda.launches - k1
-        d2 = corr_ops.corr_select_cuda.launches - k2
+        made = timing_torch.launches(was)
+        d1, d2 = made["knn"], made["corr"]
         if (d1, d2) != (K1_PER_FWD, K2_PER_FWD):
             raise AssertionError(f"request {seed}: {d1} kNN and {d2} corr launches, want {K1_PER_FWD} and {K2_PER_FWD}")
         log(f"request {seed}: {times[-1]:.2f} ms, kNN launches {d1}, corr launches {d2}")
-    launches = {"knn": knn_ops.knn_cuda.launches, "corr": corr_ops.corr_select_cuda.launches}
+    total = timing_torch.launches(mark)
+    launches = {"knn": total["knn"], "corr": total["corr"]}
     log(f"main path: {V} views x {T} frames x {H}x{W}, {N_QUERIES} queries, bf16, iters {ITERS}: "
         f"ms per request {[round(x, 2) for x in times]}, median {sorted(times)[1]:.2f}; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
@@ -998,7 +951,7 @@ def phase_main_path(torch, MVTracker, random_state_dict, make_scene, knn_ops, co
     return launches
 
 
-def phase_end_to_end(torch, MVTracker, random_state_dict, make_scene, knn_ops):
+def phase_end_to_end(torch, MVTracker, random_state_dict, make_scene):
     """Phase 4: fp32 forward through the kernels vs the plain CPU path, once
     for each kNN backend."""
     torch.backends.cudnn.allow_tf32 = False
@@ -1012,12 +965,13 @@ def phase_end_to_end(torch, MVTracker, random_state_dict, make_scene, knn_ops):
     scene = make_scene(np.random.default_rng(3), 2, 18, 96, 96, 48)
     cpu_model = copy.deepcopy(model).cpu()
     out_cpu = cpu_model(*to_device(scene, torch.device("cpu")), iters=ITERS)
-    counters = {"fused": knn_ops.knn_cuda, "tiled": knn_ops.knn_tiled_cuda, "exact": knn_ops.knn_exact_cuda}
-    for backend, counter in counters.items():
+    kernels = {"fused": "knn", "tiled": "knn_tiled", "exact": "knn_exact"}
+    for backend in kernels:
         model.knn_backend = backend
-        before = {name: fn.launches for name, fn in counters.items()}
+        before = timing_torch.launches()
         out_gpu = model(*to_device(scene, torch.device("cuda")), iters=ITERS)
-        made = {name: fn.launches - before[name] for name, fn in counters.items()}
+        got = timing_torch.launches(before)
+        made = {name: got[kernel] for name, kernel in kernels.items()}
         if not (made[backend] > 0 and sum(made.values()) == made[backend]):
             raise AssertionError(f"knn_backend={backend}: kNN launches {made}")
         for key, (tmax, tmed) in (("traj", (E2E_TRAJ_MAX, E2E_TRAJ_MEDIAN)), ("vis", (E2E_VIS_MAX, E2E_VIS_MEDIAN))):
@@ -1040,7 +994,7 @@ def leaf_kind(name: str) -> str:
     return "dead" if name.endswith(".bias") else "encoder"
 
 
-def phase_train_path(torch, smi, MVTracker, random_state_dict, make_scene, knn_ops, corr_ops):
+def phase_train_path(torch, smi, MVTracker, random_state_dict, make_scene):
     """Phase 5: 3 flagship-width bf16 train steps through `Trainer.fit`;
     returns the launch totals."""
     from mvtracker_torch.training import step as step_lib
@@ -1077,26 +1031,21 @@ def phase_train_path(torch, smi, MVTracker, random_state_dict, make_scene, knn_o
 
         steps = []
 
-        def counters():
-            return (knn_ops.knn_cuda.launches, corr_ops.corr_select_cuda.launches,
-                    corr_ops.corr_select_backward_cuda.launches)
-
         def on_step(step, metrics):
             # Called by the trainer after every step: what the step launched
             # and how long it took since the last call, device work included.
             torch.cuda.synchronize()
             now = time.perf_counter()
-            made = tuple(n - was for was, n in zip(last["counts"], counters()))
-            steps.append(((now - last["time"]) * 1e3, made, {k: float(v) for k, v in metrics.items()}))
-            last.update(time=time.perf_counter(), counts=counters())
+            made = timing_torch.launches(last["counts"])
+            steps.append(((now - last["time"]) * 1e3, tuple(made[k] for k in ("knn", "corr", "corr_bwd")),
+                          {k: float(v) for k, v in metrics.items()}))
+            last.update(time=time.perf_counter(), counts=timing_torch.launches())
 
-        knn_ops.knn_cuda.launches = 0
-        corr_ops.corr_select_cuda.launches = 0
-        corr_ops.corr_select_backward_cuda.launches = 0
-        last = {"time": time.perf_counter(), "counts": counters()}
+        mark = timing_torch.launches()
+        last = {"time": time.perf_counter(), "counts": mark}
         state = trainer.fit(same_batch(), state=state, max_steps=TRAIN_STEPS, on_step=on_step)
-        launches = {"knn": knn_ops.knn_cuda.launches, "corr": corr_ops.corr_select_cuda.launches,
-                    "corr_bwd": corr_ops.corr_select_backward_cuda.launches}
+        total = timing_torch.launches(mark)
+        launches = {key: total[key] for key in ("knn", "corr", "corr_bwd")}
         peak = torch.cuda.max_memory_allocated()
 
     if state.step != TRAIN_STEPS or len(steps) != TRAIN_STEPS:
@@ -1125,7 +1074,7 @@ def phase_train_path(torch, smi, MVTracker, random_state_dict, make_scene, knn_o
     return launches
 
 
-def phase_train_end_to_end(torch, MVTracker, random_state_dict, make_scene, corr_ops):
+def phase_train_end_to_end(torch, MVTracker, random_state_dict, make_scene):
     """Phase 6: fp32 train step (loss and gradients) through the kernels vs
     the plain CPU path."""
     from mvtracker_torch.training import step as step_lib
@@ -1149,10 +1098,10 @@ def phase_train_end_to_end(torch, MVTracker, random_state_dict, make_scene, corr
 
     results = {}
     for tag, m in (("gpu", model), ("cpu", cpu_model)):
-        before = corr_ops.corr_select_backward_cuda.launches
+        before = timing_torch.launches()
         total, parts = step_lib.scene_loss(m, scene, ITERS, 0.8, 0.1)
         total.backward()
-        used = corr_ops.corr_select_backward_cuda.launches - before
+        used = timing_torch.launches(before)["corr_bwd"]
         if (tag == "gpu") != (used > 0):
             raise AssertionError(f"{tag} path made {used} correlation backward launches")
         results[tag] = (float(total.detach()), {k: float(v.detach()) for k, v in parts.items()},
@@ -1187,7 +1136,7 @@ def phase_train_end_to_end(torch, MVTracker, random_state_dict, make_scene, corr
         raise AssertionError("end-to-end gradient gap too large")
 
 
-def phase_large_cloud(torch, smi, MVTracker, random_state_dict, make_scene, knn_ops, corr_ops):
+def phase_large_cloud(torch, smi, MVTracker, random_state_dict, make_scene):
     """Phase 7: the large-cloud serving path; returns (launch totals, the
     level-0 cloud of the last scene's first frame for phase 8)."""
     from mvtracker_torch.utils import geometry as geo
@@ -1196,16 +1145,13 @@ def phase_large_cloud(torch, smi, MVTracker, random_state_dict, make_scene, knn_
     torch.cuda.empty_cache()
     model = MVTracker(compute_dtype="bfloat16", device=dev).eval()
     model.load_state_dict(random_state_dict(model, seed=0))
-    counters = {"knn": knn_ops.knn_cuda, "knn_tiled": knn_ops.knn_tiled_cuda, "knn_exact": knn_ops.knn_exact_cuda,
-                "corr": corr_ops.corr_select_cuda}
-    want = {"knn": K1_PER_LARGE, "knn_tiled": K4_PER_LARGE, "knn_exact": 0, "corr": K2_PER_LARGE}
-    for fn in counters.values():
-        fn.launches = 0
+    want = {"knn": K1_PER_LARGE, "knn_tiled": K4_PER_LARGE, "knn_exact": 0, "corr": K2_PER_LARGE, "corr_bwd": 0}
+    mark = timing_torch.launches()
     torch.cuda.reset_peak_memory_stats()
     times = []
     for seed in range(10, 10 + LARGE_REQUESTS):
         scene = to_device(make_scene(np.random.default_rng(seed), LARGE_V, LARGE_T, LARGE_H, LARGE_W, N_QUERIES), dev)
-        before = {name: fn.launches for name, fn in counters.items()}
+        before = timing_torch.launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = model(*scene, iters=ITERS)
@@ -1216,11 +1162,11 @@ def phase_large_cloud(torch, smi, MVTracker, random_state_dict, make_scene, knn_
             raise AssertionError(f"bad output shapes {tuple(traj.shape)}, {tuple(vis.shape)}")
         if not (bool(torch.isfinite(traj).all()) and bool(torch.isfinite(vis).all())):
             raise AssertionError("non-finite outputs")
-        made = {name: fn.launches - before[name] for name, fn in counters.items()}
+        made = timing_torch.launches(before)
         if made != want:
             raise AssertionError(f"large-cloud request {seed}: launches {made}, want {want}")
         log(f"large-cloud request {seed}: {times[-1]:.2f} ms, launches {made} [{smi}]")
-    launches = {name: fn.launches for name, fn in counters.items() if want[name]}
+    launches = {name: n for name, n in timing_torch.launches(mark).items() if want[name]}
     peak = torch.cuda.max_memory_allocated()
 
     # The last request again with every kNN through the fused kernel: the two
@@ -1253,9 +1199,7 @@ def phase_direct_knn(torch, smi, knn_ops, cloud):
     large scene; returns the launch totals."""
     query = cloud[:, ::DIRECT_STRIDE].contiguous()
     own = torch.arange(0, cloud.shape[1], DIRECT_STRIDE, device=cloud.device)
-    counters = {"knn_tiled": knn_ops.knn_tiled_cuda, "knn_exact": knn_ops.knn_exact_cuda, "knn": knn_ops.knn_cuda}
-    for fn in counters.values():
-        fn.launches = 0
+    mark = timing_torch.launches()
     results, times = {}, {}
     few = query[:, :N_QUERIES].contiguous()  # a tracker's worth of queries: the tiled kernel splits the cloud
     for backend, q in (("exact", query), ("tiled", query), ("auto", few)):
@@ -1264,8 +1208,9 @@ def phase_direct_knn(torch, smi, knn_ops, cloud):
         results[backend] = knn_ops.knn(cloud, q, DIRECT_K, backend=backend)
         torch.cuda.synchronize()
         times[backend] = (time.perf_counter() - t0) * 1e3
-    launches = {name: fn.launches for name, fn in counters.items()}
-    if launches != {"knn_tiled": 2, "knn_exact": 1, "knn": 0}:  # `auto` takes the tiled kernel at this size
+    launches = timing_torch.launches(mark)
+    # `auto` takes the tiled kernel at this size
+    if launches != {"knn": 0, "knn_tiled": 2, "knn_exact": 1, "corr": 0, "corr_bwd": 0}:
         raise AssertionError(f"direct kNN entries: launches {launches}")
     d_exact, i_exact = results["exact"]
     if i_exact.shape != (1, query.shape[1], DIRECT_K) or not bool(torch.isfinite(d_exact).all()):
@@ -1460,7 +1405,7 @@ def check_plain(model, predictor_kw, dps, outputs, limits, label) -> None:
     LATER.append(check)
 
 
-def phase_evaluation(torch, smi, knn_ops, corr_ops, release):
+def phase_evaluation(torch, smi, release):
     """Phase 9: the medium model through the release protocol by the CLI's
     entry points, then served at the predictor's defaults. `release`: the
     release checkpoint's path, whose protocol is held against the JAX
@@ -1489,10 +1434,7 @@ def phase_evaluation(torch, smi, knn_ops, corr_ops, release):
                     seeded[name] = seeded[name] * FLOW_HEAD_GAIN
         return model.load_state_dict(seeded)
 
-    counters = {"knn": knn_ops.knn_cuda, "knn_tiled": knn_ops.knn_tiled_cuda, "knn_exact": knn_ops.knn_exact_cuda,
-                "corr": corr_ops.corr_select_cuda, "corr_bwd": corr_ops.corr_select_backward_cuda}
-    for fn in counters.values():
-        fn.launches = 0
+    mark = timing_torch.launches()
     args = eval_checkpoint.build_parser().parse_args(PROTOCOL_ARGV + (["--params_msgpack", release] if release else []))
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -1503,7 +1445,7 @@ def phase_evaluation(torch, smi, knn_ops, corr_ops, release):
             load_weights(model)
             result = eval_checkpoint.protocol(model, args)
     protocol_s = time.perf_counter() - t0
-    made = {name: fn.launches for name, fn in counters.items()}
+    made = timing_torch.launches(mark)
     if (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) != (True, False):
         raise AssertionError("the protocol left the process's TF32 settings changed")
     scenes = result.scenes["calib"] + result.scenes["heldout"]
@@ -1554,12 +1496,12 @@ def phase_evaluation(torch, smi, knn_ops, corr_ops, release):
         times, counts = [], []
         with torch.no_grad(), fp32_precision(exact):
             for dp in heldout[: SERVE_TIMED + 1]:
-                k1, k2 = knn_ops.knn_cuda.launches, corr_ops.corr_select_cuda.launches
+                was = timing_torch.launches()
                 t0 = time.perf_counter()
                 out = predictor(*request_args(dp))
                 traj, vis = to_host(out["traj"]), to_host(out["vis"])
                 times.append((time.perf_counter() - t0) * 1e3)
-                got = (knn_ops.knn_cuda.launches - k1, corr_ops.corr_select_cuda.launches - k2)
+                got = tuple(timing_torch.launches(was)[key] for key in ("knn", "corr"))
                 if got != eval_launches(dp, SERVE_ITERS, False):
                     raise AssertionError(f"defaults {label}: launches {got}, want {eval_launches(dp, SERVE_ITERS, False)}")
                 if traj.shape != (EVAL_T, PROTOCOL_QUERIES, 3) or not (np.isfinite(traj).all() and np.isfinite(vis).all()):
@@ -1675,7 +1617,7 @@ class LogRecords(logging.Handler):
         self.root.setLevel(self.saved)
 
 
-def phase_options(torch, smi, knn_ops, corr_ops, release):
+def phase_options(torch, smi, knn_ops, release):
     """Phase 10: the tracker's options, warm start with the corr-width
     migration, and the config-driven CLIs. Returns {path: launch totals}."""
     import threading
@@ -1696,17 +1638,6 @@ def phase_options(torch, smi, knn_ops, corr_ops, release):
     from mvtracker_torch.training.train import TrainConfig, Trainer
 
     dev = torch.device("cuda")
-    counters = {"knn": knn_ops.knn_cuda, "knn_tiled": knn_ops.knn_tiled_cuda, "knn_exact": knn_ops.knn_exact_cuda,
-                "corr": corr_ops.corr_select_cuda, "corr_bwd": corr_ops.corr_select_backward_cuda}
-
-    def reset():
-        for fn in counters.values():
-            fn.launches = 0
-        knn_ops.knn_cuda.launches_by_k = {}
-
-    def made():
-        return {name: fn.launches for name, fn in counters.items()}
-
     def medium(**kw):
         return preset_model("medium", vis_geom=True, vis_head_hidden=128, device=dev, **kw).eval()
 
@@ -1737,12 +1668,12 @@ def phase_options(torch, smi, knn_ops, corr_ops, release):
     if not migration:
         raise AssertionError(f"the warm start logged no corr-width migration: {logs.messages}")
     log(f"options (a) warm start from {source}: {migration[0]}")
-    reset()
     with fp32_precision(exact=True):
         card_u = outputs_on(EvaluationPredictor(uniform, **protocol_kw), dps)
-        reset()
+        mark = timing_torch.launches()
         card_m = outputs_on(EvaluationPredictor(migrated, **protocol_kw), dps)
-        paths["options_migration"] = {k: made()[k] for k in ("knn_exact", "corr")}
+        made = timing_torch.launches(mark)
+        paths["options_migration"] = {k: made[k] for k in ("knn_exact", "corr")}
         want = {"knn_exact": sum(1 + w * PROTOCOL_ITERS * 2 for w in windows),
                 "corr": sum(w * PROTOCOL_ITERS * 3 for w in windows)}
         if paths["options_migration"] != want:
@@ -1774,30 +1705,31 @@ def phase_options(torch, smi, knn_ops, corr_ops, release):
                                                   n_views=4, n_frames=EVAL_T, height=128, width=128,
                                                   n_tracks=PROTOCOL_QUERIES, texture_detail=1.0, texture_noise=1.0),
                             batch_size=1, shuffle=False, num_workers=1)
-    drawn, steps = [], []
+    drawn, steps, knn_ks = [], [], []
 
-    def recording(it):
+    def windows_drawn(it):
         for batch in it:
             drawn.append(windows_of(batch["query_points"], EVAL_T, EVAL_WINDOW, EVAL_HOP))
             yield batch
 
     def on_step(step, metrics):
         torch.cuda.synchronize()
-        steps.append((time.perf_counter(), made(), dict(knn_ops.knn_cuda.launches_by_k),
+        steps.append((time.perf_counter(), timing_torch.launches(mark), len(knn_ks),
                       {k: float(v) for k, v in metrics.items()}))
 
-    reset()
-    with LogRecords() as logs:
-        state = trainer.fit(recording(iter(loader)), max_steps=TRAIN_STEPS, on_step=on_step)
+    mark = timing_torch.launches()
+    with LogRecords() as logs, timing_torch.recording(knn_ops, "knn", knn_ks, lambda a, kw, o: knn_call(a, kw, o)[2]):
+        state = trainer.fit(windows_drawn(iter(loader)), max_steps=TRAIN_STEPS, on_step=on_step)
     if not any(m.startswith("warm-start: migrated input_transform") for m in logs.messages):
         raise AssertionError("fit did not warm-start from warm_start_ckpt")
     telemetry = [m for m in logs.messages if "mean/med/std" in m]
-    paths["options_train"] = {k: made()[k] for k in ("knn", "corr", "corr_bwd")}
-    last, last_k, last_t = {k: 0 for k in counters}, {}, t0
-    for i, (t, counts, by_k, metrics) in enumerate(steps):
+    made = timing_torch.launches(mark)
+    paths["options_train"] = {k: made[k] for k in ("knn", "corr", "corr_bwd")}
+    last, last_n, last_t = dict.fromkeys(("knn", "corr", "corr_bwd"), 0), 0, t0
+    for i, (t, counts, n_knn, metrics) in enumerate(steps):
         w = drawn[i]
         step_counts = {k: counts[k] - last[k] for k in ("knn", "corr", "corr_bwd")}
-        step_k = {k: by_k.get(k, 0) - last_k.get(k, 0) for k in by_k}
+        step_k = dict(Counter(knn_ks[last_n:n_knn]))  # the k of each kNN call of the step, all through K1
         want = {"knn": 1 + w * PROTOCOL_ITERS * 2, "corr": w * PROTOCOL_ITERS * 3, "corr_bwd": w * PROTOCOL_ITERS * 3}
         want_k = {1: 1, K0: w * PROTOCOL_ITERS, EVAL_K: w * PROTOCOL_ITERS}
         if step_counts != want or step_k != want_k or counts["knn_exact"] != 0:
@@ -1808,7 +1740,7 @@ def phase_options(torch, smi, knn_ops, corr_ops, release):
         log(f"options (b) train step {i}: {(t - last_t) * 1e3:.2f} ms, loss {metrics['loss']:.6f}, grad_norm "
             f"{metrics['grad_norm']:.4f}, {w} windows: K1/K2/K3 launches {step_counts} (K1 by k {step_k}: "
             f"feat_init k=1, level 0 k={K0}, levels 1-2 together k={EVAL_K}) [{smi}]")
-        last, last_k, last_t = counts, by_k, t
+        last, last_n, last_t = counts, n_knn, t
     if state.step != TRAIN_STEPS:
         raise AssertionError(f"the trainer took {state.step} steps")
     log(f"options (b) training: corr_k0={K0} medium model, bf16, {TRAIN_STEPS} steps of the protocol's shape in "
@@ -1822,13 +1754,14 @@ def phase_options(torch, smi, knn_ops, corr_ops, release):
     t0 = time.perf_counter()
     knobs = dict(global_match=True, chain_velocity=1.0, knn_reuse=True)
     model = weights(medium(compute_dtype="float32", **knobs))
-    reset()
+    mark = timing_torch.launches()
     with fp32_precision(exact=True):
         counted = outputs_on(EvaluationPredictor(model, **protocol_kw), dps)
-    paths["options_eval"] = {k: made()[k] for k in ("knn", "corr")}
+    made = timing_torch.launches(mark)
+    paths["options_eval"] = {k: made[k] for k in ("knn", "corr")}
     want = {"knn": sum(1 + w * 2 for w in windows), "corr": sum(w * PROTOCOL_ITERS * 3 for w in windows)}
-    if paths["options_eval"] != want or made()["knn_exact"]:
-        raise AssertionError(f"round-4 knobs: launches {made()}, want {want}")
+    if paths["options_eval"] != want or made["knn_exact"]:
+        raise AssertionError(f"round-4 knobs: launches {made}, want {want}")
     log(f"options (c) round-4 knobs: K1 launches {paths['options_eval']['knn']} for {len(dps)} requests "
         f"({want['knn'] / len(dps):.1f} a request; "
         f"{sum(1 + w * PROTOCOL_ITERS * 2 for w in windows) / len(dps):.1f} without reuse), K2 "
@@ -1859,40 +1792,42 @@ def phase_options(torch, smi, knn_ops, corr_ops, release):
     argv = ["--config", config, "--device", "cuda", "trainer.total_steps=3", "trainer.adaptive_iters=false",
             f"trainer.exp_dir={exp}", "trainer.save_ckpt_freq=3", "trainer.telemetry_freq=1"]
     torch.cuda.empty_cache()
-    reset()
+    mark = timing_torch.launches()
     t0 = time.perf_counter()
     with LogRecords() as logs:
         state = cli_train.main(argv)
     train_s = time.perf_counter() - t0
     telemetry = [m.split(" | ")[-1] for m in logs.messages if "mean/med/std" in m]
-    paths["config_cli_train"] = {k: made()[k] for k in ("knn", "corr", "corr_bwd")}
+    made = timing_torch.launches(mark)
+    paths["config_cli_train"] = {k: made[k] for k in ("knn", "corr", "corr_bwd")}
     per_step = {"knn": 1 + 3 * 3, "corr": 3 * ITERS * 4, "corr_bwd": 3 * ITERS * 4}
     want = {k: v * 3 for k, v in per_step.items()}
-    if state.step != 3 or paths["config_cli_train"] != want or made()["knn_exact"] or made()["knn_tiled"]:
-        raise AssertionError(f"cli.train: {state.step} steps, launches {made()}, want {want} (3 windows a step)")
+    if state.step != 3 or paths["config_cli_train"] != want or made["knn_exact"] or made["knn_tiled"]:
+        raise AssertionError(f"cli.train: {state.step} steps, launches {made}, want {want} (3 windows a step)")
     log(f"options (d) cli.train {' '.join(argv[:2])} {' '.join(argv[4:])}: 3 steps in {train_s:.1f} s with the "
         f"scenes' rendering; launches {paths['config_cli_train']} ({per_step} a step); the trainer's telemetry per step "
         f"(data, then the step to its loss fetch): {telemetry} [{smi}]")
     del state
     torch.cuda.empty_cache()
-    reset()
+    mark = timing_torch.launches()
     t0 = time.perf_counter()
     with LogRecords() as logs:
         summary = cli_eval.main(["--config", config, "--device", "cuda", f"trainer.exp_dir={exp}",
                                  "eval.max_sequences=1"])
     eval_s = time.perf_counter() - t0
-    paths["config_cli_eval"] = {k: made()[k] for k in ("knn", "corr")}
+    made = timing_torch.launches(mark)
+    paths["config_cli_eval"] = {k: made[k] for k in ("knn", "corr")}
     calls = 2  # the Evaluator runs the first scene of a shape once untimed
     eval_iters = load_config(config).eval.n_iters
     want = {"knn": calls * (1 + 3 * 3), "corr": calls * 3 * eval_iters * 4}
     if "evaluating checkpoint at step 3" not in logs.messages or paths["config_cli_eval"] != want:
-        raise AssertionError(f"cli.eval: launches {made()}, want {want}; restored: "
+        raise AssertionError(f"cli.eval: launches {made}, want {want}; restored: "
                              f"{[m for m in logs.messages if 'checkpoint' in m]}")
     log(f"options (d) cli.eval restored step 3 and evaluated {summary['n_sequences']} sequences in {eval_s:.1f} s "
         f"(AJ {summary['all_any']['average_jaccard']:.3f}, fps {summary['fps']:.2f}); launches "
         f"{paths['config_cli_eval']}")
 
-    reset()
+    mark = timing_torch.launches()
     requests = {}
     scene = make_scene(np.random.default_rng(30), V, T, H, W, N_QUERIES)
     for name in ("mvtracker_normalized", "mvtracker_ptv3"):
@@ -1907,10 +1842,11 @@ def phase_options(torch, smi, knn_ops, corr_ops, release):
         requests[name] = model
         log(f"options (d) {name}: one request of {V} views x {T} frames x {H}x{W}, {N_QUERIES} queries, fp32, "
             f"iters {ITERS}: {(time.perf_counter() - t0) * 1e3:.2f} ms (first) [{smi}]")
-    paths["config_requests"] = {k: made()[k] for k in ("knn", "corr")}
+    made = timing_torch.launches(mark)
+    paths["config_requests"] = {k: made[k] for k in ("knn", "corr")}
     want = {"knn": 2 * K1_PER_FWD, "corr": 2 * K2_PER_FWD}
     if paths["config_requests"] != want:
-        raise AssertionError(f"normalized and PTv3 requests: launches {made()}, want {want}")
+        raise AssertionError(f"normalized and PTv3 requests: launches {made}, want {want}")
     model = requests.pop("mvtracker_ptv3")
     del requests
     model.knn_backend = "exact"
@@ -1944,7 +1880,7 @@ def phase_options(torch, smi, knn_ops, corr_ops, release):
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     host, port = server.server_address[:2]
-    reset()
+    mark = timing_torch.launches()
     try:
         times = []
         for seed in (40, 41):
@@ -1967,7 +1903,8 @@ def phase_options(torch, smi, knn_ops, corr_ops, release):
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
-    paths["serving_cli"] = {k: made()[k] for k in ("knn", "corr")}
+    made = timing_torch.launches(mark)
+    paths["serving_cli"] = {k: made[k] for k in ("knn", "corr")}
     per_request = {"knn": 1 + 3 * args.iters * 3, "corr": 3 * args.iters * 4}
     want = {k: 4 * v for k, v in per_request.items()}  # 2 served, 2 direct
     if paths["serving_cli"] != want or (health["requests"], health["errors"]) != (2, 0):
@@ -2121,7 +2058,7 @@ def timed(fn, reps: int = 3):
     return out, best
 
 
-def phase_data_path(torch, smi, knn_ops, corr_ops):
+def phase_data_path(torch, smi):
     """Phase 11. Returns {path: launch totals}."""
     from mvtracker_torch import native
     from mvtracker_torch.cli import eval as cli_eval
@@ -2140,16 +2077,6 @@ def phase_data_path(torch, smi, knn_ops, corr_ops):
     from mvtracker_torch.training import replay
     from mvtracker_torch.training import step as step_lib
     from mvtracker_torch.training.train import TrainConfig, Trainer
-
-    counters = {"knn": knn_ops.knn_cuda, "knn_tiled": knn_ops.knn_tiled_cuda, "knn_exact": knn_ops.knn_exact_cuda,
-                "corr": corr_ops.corr_select_cuda, "corr_bwd": corr_ops.corr_select_backward_cuda}
-
-    def reset():
-        for fn in counters.values():
-            fn.launches = 0
-
-    def made():
-        return {name: fn.launches for name, fn in counters.items()}
 
     paths = {}
     tmp = tempfile.TemporaryDirectory()
@@ -2203,14 +2130,7 @@ def phase_data_path(torch, smi, knn_ops, corr_ops):
     cache_dir = root / "scene_cache"
     scene_kw = dict(n_views=V, n_frames=T, height=H, width=W, n_tracks=N_QUERIES)
     renders = []
-    real_render = synthetic.render_scene
-
-    def counted_render(**kw):
-        renders.append(kw["seed"])
-        return real_render(**kw)
-
-    synthetic.render_scene = counted_render
-    try:
+    with timing_torch.recording(synthetic, "render_scene", renders, keep=lambda a, kw, out: kw["seed"]):
         dataset = SyntheticSceneDataset(n_scenes=AUG_SCENES, cache=True, seed=0, randomize=True, augment=True,
                                         disk_cache_dir=str(cache_dir), **scene_kw)
         cfg = load_config(str(ROOT / "configs" / "mvtracker.yaml"), ["model.compute_dtype=bfloat16", "model.remat=true"])
@@ -2224,24 +2144,25 @@ def phase_data_path(torch, smi, knn_ops, corr_ops):
         loader = PrefetchLoader(dataset, batch_size=1, num_workers=AUG_WORKERS, shuffle=True)
         drawn, steps = [], []
 
-        def recording(it):
+        def windows_drawn(it):
             for batch in it:
                 drawn.append(windows_of(batch["query_points"], T, WINDOW, WINDOW // 2))
                 yield batch
 
         def on_step(step, metrics):
             torch.cuda.synchronize()
-            steps.append((time.perf_counter(), made(), {k: float(v) for k, v in metrics.items()}))
+            steps.append((time.perf_counter(), timing_torch.launches(mark), {k: float(v) for k, v in metrics.items()}))
 
-        reset()
+        mark = timing_torch.launches()
         torch.cuda.reset_peak_memory_stats()
         t_fit = time.perf_counter()
         with LogRecords() as logs:
-            state = trainer.fit(recording(loader.prefetching_iter()), max_steps=AUG_STEPS, on_step=on_step)
-        paths["augmented_train"] = {k: made()[k] for k in ("knn", "corr", "corr_bwd")}
+            state = trainer.fit(windows_drawn(loader.prefetching_iter()), max_steps=AUG_STEPS, on_step=on_step)
+        made = timing_torch.launches(mark)
+        paths["augmented_train"] = {k: made[k] for k in ("knn", "corr", "corr_bwd")}
         telemetry = [m.split(" | ")[-1] for m in logs.messages if "mean/med/std" in m]
         memory = [m.split(": ", 1)[-1] for m in logs.messages if "device memory (MiB)" in m]
-        last, last_t = {k: 0 for k in counters}, t_fit
+        last, last_t = dict.fromkeys(("knn", "corr", "corr_bwd"), 0), t_fit
         for i, (t, counts, metrics) in enumerate(steps):
             w = drawn[i]
             step_counts = {k: counts[k] - last[k] for k in ("knn", "corr", "corr_bwd")}
@@ -2295,15 +2216,12 @@ def phase_data_path(torch, smi, knn_ops, corr_ops):
                                       disk_cache_dir=str(cache_dir), **scene_kw)
         trainer = Trainer(model, TrainConfig(train_iters=ITERS, adaptive_iters=False, warmup_steps=0,
                                              save_ckpt_freq=10**6, exp_dir=str(root / "augmented_again")))
-        reset()
         state = trainer.fit(iter(PrefetchLoader(again, batch_size=1, num_workers=AUG_WORKERS, shuffle=True)),
                             max_steps=2)
         if len(renders) != before or state.step != 2:
             raise AssertionError(f"the second run rendered {len(renders) - before} scenes, took {state.step} steps")
         log(f"data path (b) second run over the disk cache: 2 steps, 0 scenes rendered")
         del trainer, state, model
-    finally:
-        synthetic.render_scene = real_render
     torch.cuda.empty_cache()
 
     # (c) Crash replay: an evaluation hook that raises at step 2 makes the
@@ -2342,9 +2260,10 @@ def phase_data_path(torch, smi, knn_ops, corr_ops):
         restored = medium_fp32("cuda")
         restorer = Trainer(restored, TrainConfig(exp_dir=str(exp)))
         _, ckpt_step = restorer.restore_latest(step_lib.init_state(restored, restorer.optimizer))
-        reset()
+        mark = timing_torch.launches()
         card = replay.replay(batch, restored, iters=PROTOCOL_ITERS)
-        paths["crash_replay"] = {k: made()[k] for k in ("knn_exact", "corr", "corr_bwd")}
+        made = timing_torch.launches(mark)
+        paths["crash_replay"] = {k: made[k] for k in ("knn_exact", "corr", "corr_bwd")}
         cpu = replay.replay(batch, copy.deepcopy(restored).cpu(), iters=PROTOCOL_ITERS)
     gap = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
     log(f"data path (c) crash replay of {dumps[0]} ({', '.join(f'{k} {tuple(v.shape)}' for k, v in batch.items())}) "
@@ -2384,17 +2303,18 @@ def phase_data_path(torch, smi, knn_ops, corr_ops):
     argv = ["--config", str(ROOT / "configs" / "mvtracker.yaml"), "--device", "cuda", "data.dataset=kubric",
             f"data.root={kroot}", "trainer.total_steps=3", f"trainer.exp_dir={exp}", "trainer.telemetry_freq=1"]
     torch.cuda.empty_cache()
-    reset()
+    mark = timing_torch.launches()
     t1 = time.perf_counter()
     with LogRecords() as logs:
         state = cli_train.main(argv)
     train_s = time.perf_counter() - t1
-    paths["kubric_cli_train"] = {k: made()[k] for k in ("knn", "corr", "corr_bwd")}
+    made = timing_torch.launches(mark)
+    paths["kubric_cli_train"] = {k: made[k] for k in ("knn", "corr", "corr_bwd")}
     # adaptive_iters with 100 warm-up steps: one iteration a step.
     want = {"knn": sum(1 + w * 3 for w in windows), "corr": sum(w * 4 for w in windows),
             "corr_bwd": sum(w * 4 for w in windows)}
     if state.step != 3 or paths["kubric_cli_train"] != want:
-        raise AssertionError(f"cli.train on Kubric: {state.step} steps, launches {made()}, want {want}")
+        raise AssertionError(f"cli.train on Kubric: {state.step} steps, launches {made}, want {want}")
     telemetry = [m.split(" | ")[-1] for m in logs.messages if "mean/med/std" in m]
     log(f"data path (d) cli.train --config configs/mvtracker.yaml data.dataset=kubric trainer.total_steps=3: "
         f"{train_s:.1f} s (fp32, 1 iteration a step in the warm-up), scenes {scenes_drawn} with {windows} windows; "
@@ -2423,16 +2343,17 @@ def phase_data_path(torch, smi, knn_ops, corr_ops):
     paths["realworld_cli_eval"] = {"knn": 0, "corr": 0}
     for name in ("panoptic-multiview", "dexycb-multiview"):
         dp = dataset_from_name(name, str(rroot))[0]
-        reset()
+        mark = timing_torch.launches()
         t1 = time.perf_counter()
         with LogRecords() as logs:
             summary = cli_eval.main(medium_argv + [f"data.dataset={name}", f"eval.setting={name}"])
         eval_s = time.perf_counter() - t1
-        counts = {k: made()[k] for k in ("knn", "corr")}
+        made = timing_torch.launches(mark)
+        counts = {k: made[k] for k in ("knn", "corr")}
         # The support grid's points start at frame 0, so both windows run.
         k1, k2 = eval_launches(SimpleNamespace(query_points_3d=np.zeros((1, 4))), SERVE_ITERS, False)
         if "evaluating checkpoint at step 0" not in logs.messages or counts != {"knn": 2 * k1, "corr": 2 * k2}:
-            raise AssertionError(f"cli.eval on {name}: launches {made()}, want {2 * k1}, {2 * k2} (first call "
+            raise AssertionError(f"cli.eval on {name}: launches {made}, want {2 * k1}, {2 * k2} (first call "
                                  "untimed, then timed)")
         for k in counts:
             paths["realworld_cli_eval"][k] += counts[k]
@@ -2501,7 +2422,7 @@ COT_PLAIN_LIMITS = {"traj": {"median": 3e-5, "p90": 3e-4, "max": 1e-3},
 NCC_EQUAL_SHARE_MIN = 0.98
 
 
-def phase_other_families(torch, smi, knn_ops, corr_ops):
+def phase_other_families(torch, smi):
     """Phase 12: the triplane SpaTracker, the learned 2D tracker and the
     monocular zoo through their entry points. Returns {path: launch totals},
     every one of which must be 0."""
@@ -2518,16 +2439,6 @@ def phase_other_families(torch, smi, knn_ops, corr_ops):
     from mvtracker_torch.scene import make_scene
 
     dev = torch.device("cuda")
-    counters = {"knn": knn_ops.knn_cuda, "knn_tiled": knn_ops.knn_tiled_cuda, "knn_exact": knn_ops.knn_exact_cuda,
-                "corr": corr_ops.corr_select_cuda, "corr_bwd": corr_ops.corr_select_backward_cuda}
-
-    def reset():
-        for fn in counters.values():
-            fn.launches = 0
-
-    def made():
-        return {name: fn.launches for name, fn in counters.items()}
-
     paths = {}
     tmp = tempfile.TemporaryDirectory()
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False  # PyTorch's defaults
@@ -2544,7 +2455,7 @@ def phase_other_families(torch, smi, knn_ops, corr_ops):
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    reset()
+    mark = timing_torch.launches()
     times = []
     for scene in scenes:
         args = to_device(scene, dev)
@@ -2556,7 +2467,7 @@ def phase_other_families(torch, smi, knn_ops, corr_ops):
             raise AssertionError(f"spatracker: output shapes {tuple(out['traj'].shape)}, {tuple(out['vis'].shape)}")
         if not (bool(torch.isfinite(out["traj"]).all()) and bool(torch.isfinite(out["vis"]).all())):
             raise AssertionError("spatracker: non-finite outputs")
-    paths["spatracker_serving"] = made()
+    paths["spatracker_serving"] = timing_torch.launches(mark)
     log(f"other families (a) spatracker_multiview ({width}), fp32, seeded weights, {shape}: ms per request "
         f"{[round(x, 2) for x in times]} (the first cold); max_memory_allocated "
         f"{(torch.cuda.max_memory_allocated() - resident) / 2**20:.1f} MiB above {resident / 2**20:.1f} MiB of "
@@ -2576,7 +2487,7 @@ def phase_other_families(torch, smi, knn_ops, corr_ops):
     def splat_ms(deterministic):
         torch.use_deterministic_algorithms(deterministic)
         try:
-            return wrapper_ms(splat, reps=10), splat()
+            return timing_torch.event_ms(splat, "cuda", 10), splat()
         finally:
             torch.use_deterministic_algorithms(False)
 
@@ -2589,14 +2500,14 @@ def phase_other_families(torch, smi, knn_ops, corr_ops):
     bf16 = build_model(dataclasses.replace(cfg.model, compute_dtype="bfloat16"), device=dev)
     bf16.load_state_dict(model.state_dict())
     args = to_device(scenes[0], dev)
-    reset()
+    mark = timing_torch.launches()
     times = []
     for _ in range(2):
         t0 = time.perf_counter()
         out_bf16 = bf16(*args, iters=ITERS)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    paths["spatracker_bf16"] = made()
+    paths["spatracker_bf16"] = timing_torch.launches(mark)
     if not bool(torch.isfinite(out_bf16["traj"]).all()):
         raise AssertionError("spatracker bf16: non-finite outputs")
     del bf16
@@ -2624,12 +2535,12 @@ def phase_other_families(torch, smi, knn_ops, corr_ops):
             f"trainer.save_ckpt_freq={FAMILY_TRAIN_STEPS}", "trainer.adaptive_iters=false", "trainer.telemetry_freq=1",
             f"trainer.exp_dir={exp}"]
     torch.cuda.reset_peak_memory_stats()
-    reset()
+    mark = timing_torch.launches()
     t0 = time.perf_counter()
     with LogRecords() as logs:
         state = cli_train.main(argv)
     train_s = time.perf_counter() - t0
-    paths["spatracker_cli_train"] = made()
+    paths["spatracker_cli_train"] = timing_torch.launches(mark)
     telemetry = [m.split(" | ")[-1] for m in logs.messages if "mean/med/std" in m]
     if state.step != FAMILY_TRAIN_STEPS:
         raise AssertionError(f"spatracker cli.train: {state.step} steps, want {FAMILY_TRAIN_STEPS}")
@@ -2645,12 +2556,12 @@ def phase_other_families(torch, smi, knn_ops, corr_ops):
                                                   ROOT / "scripts" / "train_cotracker2d_torch.py")
     script = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(script)
-    reset()
+    mark = timing_torch.launches()
     t0 = time.perf_counter()
     with LogRecords() as logs:
         report = script.main(COT2D_SCRIPT_ARGV + ["--exp_dir", os.path.join(tmp.name, "cotracker2d")])
     script_s = time.perf_counter() - t0
-    paths["cotracker2d_script"] = made()
+    paths["cotracker2d_script"] = timing_torch.launches(mark)
     telemetry = [m.split(" | ")[-1] for m in logs.messages if "mean/med/std" in m]
     ajs = {k: report[k].get("average_jaccard") for k in ("learned_cotracker2d", "ncc_template", "copycat")}
     if not all(v is not None and np.isfinite(v) for v in ajs.values()):
@@ -2661,7 +2572,7 @@ def phase_other_families(torch, smi, knn_ops, corr_ops):
     cot_cfg = load_config(str(ROOT / COT_CONFIG))
     adapter = build_model(cot_cfg.model, device=dev)
     seeded_weights(adapter.tracker_2d.model)
-    reset()
+    mark = timing_torch.launches()
     times = []
     with fp32_precision(exact=True):
         for _ in range(2):
@@ -2669,7 +2580,7 @@ def phase_other_families(torch, smi, knn_ops, corr_ops):
             got = adapter(*to_device(scenes[0], dev))
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        paths["cotracker2d_request"] = made()
+        paths["cotracker2d_request"] = timing_torch.launches(mark)
         cpu_adapter = MonocularToMultiViewAdapter(
             LearnedTracker2D(copy.deepcopy(adapter.tracker_2d.model).cpu(), n_iters=adapter.tracker_2d.n_iters),
             device="cpu")
@@ -2686,13 +2597,13 @@ def phase_other_families(torch, smi, knn_ops, corr_ops):
         built = build_model(dataclasses.replace(zoo.model, name=name), device=dev)
         if not (isinstance(built.tracker_2d, SimpleNNTracker2D) and built.device.type == "cuda"):
             raise AssertionError(f"{name}: built {type(built.tracker_2d).__name__} on {built.device}")
-        reset()
+        mark = timing_torch.launches()
         t0 = time.perf_counter()
         with LogRecords() as logs:
             summary = cli_eval.main(["--config", str(ROOT / ZOO_CONFIG), "--device", "cuda", "eval.max_sequences=1",
                                      f"trainer.exp_dir={os.path.join(tmp.name, 'zoo')}", *extra])
         eval_s = time.perf_counter() - t0
-        paths[f"zoo_cli_eval_{name}"] = made()
+        paths[f"zoo_cli_eval_{name}"] = timing_torch.launches(mark)
         reports = [m for m in logs.messages if "falling back to the in-repo NCC tracker" in m]
         if not reports:
             raise AssertionError(f"{name}: no report of the missing hub checkpoint in the log")
@@ -2708,7 +2619,7 @@ def phase_other_families(torch, smi, knn_ops, corr_ops):
     ncc = SimpleNNTracker2D()
     equal = vis_equal = total = parted = 0
     card_ms = cpu_ms = 0.0
-    reset()
+    mark = timing_torch.launches()
     for vi in range(dp.video.shape[0]):
         sel = view == vi
         if not bool(sel.any()):
@@ -2728,7 +2639,7 @@ def phase_other_families(torch, smi, knn_ops, corr_ops):
         parted += int((~same).any(0).sum())
         vis_equal += int((vis_g.cpu() == vis_c).sum())
         total += vis_c.numel()
-    paths["ncc_direct"] = made()
+    paths["ncc_direct"] = timing_torch.launches(mark)
     share = equal / total
     log(f"other families (c) NCC tracker on that scene's views, card vs CPU: share of equal positions {share:.6f} "
         f"(limit {NCC_EQUAL_SHARE_MIN}), of equal visibility {vis_equal / total:.6f}, {total} positions, {parted} of "
@@ -2909,24 +2820,6 @@ def knn_call(args, kw, out):
     return args[0], args[1], kw["k"] if "k" in kw else args[2]
 
 
-@contextlib.contextmanager
-def recording(module, name: str, calls: list, keep=lambda args, kw, out: args):
-    """Record what `keep` picks of each call of `module.name` into `calls`
-    while the block runs; the calls themselves are unchanged."""
-    original = getattr(module, name)
-
-    def wrapper(*args, **kw):
-        out = original(*args, **kw)
-        calls.append(keep(args, kw, out))
-        return out
-
-    setattr(module, name, wrapper)
-    try:
-        yield calls
-    finally:
-        setattr(module, name, original)
-
-
 def on_cpu(tree):
     """A named tuple of tensors, or of dicts of tensors, moved to the CPU."""
     return tree.__class__(*({k: v.cpu() for k, v in x.items()} if isinstance(x, dict) else x.cpu() for x in tree))
@@ -2956,14 +2849,14 @@ def time_knn_shape(torch, knn_ops, pts, k, label, smi):
     """Log K1's device time on `pts` as its own queries, the plain
     version's, and the bound."""
     n = pts.shape[1]
-    ms = device_ms(lambda: knn_ops.knn_cuda(pts, pts, k), reps=10)
-    plain = device_ms(lambda: knn_ops.knn_plain(pts, pts, k), reps=2, replays=1)
+    ms = timing_torch.device_ms(lambda: knn_ops.knn_cuda(pts, pts, k), reps=10)
+    plain = timing_torch.device_ms(lambda: knn_ops.knn_plain(pts, pts, k), reps=2, replays=1)
     bnd, by = knn_bound(1, n, n, k)
     log(f"last models {label}: K1 at k={k}, M=N={n}: {ms:.5f} ms on the device, plain {plain:.5f} ms, bound "
         f"{bnd:.5f} ms ({by}), {ms / bnd:.1f} times the bound [{smi}]")
 
 
-def phase_last_models(torch, smi, knn_ops, corr_ops):
+def phase_last_models(torch, smi, knn_ops):
     """Phase 13. Returns ({path: launches of its kernels}, {path: launch
     totals of a path with no kNN or correlation stage})."""
     import dataclasses
@@ -2981,16 +2874,6 @@ def phase_last_models(torch, smi, knn_ops, corr_ops):
     from mvtracker_torch.models.mvtracker import MVTracker
 
     dev = torch.device("cuda")
-    counters = {"knn": knn_ops.knn_cuda, "knn_tiled": knn_ops.knn_tiled_cuda, "knn_exact": knn_ops.knn_exact_cuda,
-                "corr": corr_ops.corr_select_cuda, "corr_bwd": corr_ops.corr_select_backward_cuda}
-
-    def reset():
-        for fn in counters.values():
-            fn.launches = 0
-
-    def made(*keys):
-        return {name: counters[name].launches for name in keys or counters}
-
     paths, free = {}, {}
     tmp = tempfile.TemporaryDirectory()
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False  # PyTorch's defaults
@@ -3019,7 +2902,7 @@ def phase_last_models(torch, smi, knn_ops, corr_ops):
         x = torch.nn.functional.interpolate(x, size=size, mode="bilinear", align_corners=False, antialias=True)
         return x.permute(0, 2, 3, 1)[None].contiguous()
 
-    reset()
+    mark = timing_torch.launches()
     times, peaks = [], {}
     with torch.no_grad():
         for ts, size, label in [([0], VGGT_SIZE, "S=4")] * VGGT_REQUESTS + [([0], VGGT_WIDE, "S=4 wide"),
@@ -3039,7 +2922,7 @@ def phase_last_models(torch, smi, knn_ops, corr_ops):
                 raise AssertionError(f"VGGT {label}: non-finite outputs")
             if label == "S=4":
                 est_extrs = out["extrinsics"][0].cpu().numpy()
-    free["vggt"] = made()
+    free["vggt"] = timing_torch.launches(mark)
     log(f"last models (a) VGGT-1B requests on the {V} views of scene {GENERIC_SEED} (first cold): "
         f"{[(round(ms, 2), label) for ms, label in times]} ms; max_memory_allocated above the weights "
         f"{ {k: round(v, 1) for k, v in peaks.items()} } MiB; launches {free['vggt']} [{smi}]")
@@ -3094,17 +2977,18 @@ def phase_last_models(torch, smi, knn_ops, corr_ops):
     request = (dp.video, dp.videodepth, queries, dp.intrs, dp.extrs)
     model = MVTracker(compute_dtype="bfloat16", device=dev).eval()
     model.load_state_dict(random_state_dict(model, seed=0))
-    reset()
+    mark = timing_torch.launches()
     times, knn_calls = [], []
     for i in range(3):
         t1 = time.perf_counter()
-        with recording(knn_ops, "knn", knn_calls, knn_call) if i == 0 else contextlib.nullcontext():
+        with timing_torch.recording(knn_ops, "knn", knn_calls, knn_call) if i == 0 else contextlib.nullcontext():
             out = model(*to_device(request, dev), iters=ITERS)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t1) * 1e3)
         if out["traj"].shape != (T, len(queries), 3) or not bool(torch.isfinite(out["traj"]).all()):
             raise AssertionError("generic scene tracker: bad outputs")
-    paths["generic_scene_serving"] = made("knn", "corr")
+    made = timing_torch.launches(mark)
+    paths["generic_scene_serving"] = {k: made[k] for k in ("knn", "corr")}
     log(f"last models (b) flagship MVTracker (bf16, seeded) on the generic scene: ms per request "
         f"{[round(x, 2) for x in times]} (first cold); launches {paths['generic_scene_serving']} [{smi}]")
     held = recorded_knn_against_exact(torch, knn_ops, knn_calls)
@@ -3126,17 +3010,17 @@ def phase_last_models(torch, smi, knn_ops, corr_ops):
     d3cfg = d3.D3DGSConfig(iters_first=D3_ITERS_FIRST, iters_rest=D3_ITERS_REST, segment_iters=D3_SEGMENT,
                            densify_start=D3_DENSIFY_START)
     knn_calls, densified = [], []
-    reset()
+    mark = timing_torch.launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    with recording(d3, "knn", knn_calls, knn_call), \
-            recording(d3, "densify", densified, lambda a, kw, o: (a, kw, o)):
+    with timing_torch.recording(d3, "knn", knn_calls, knn_call), \
+            timing_torch.recording(d3, "densify", densified, lambda a, kw, o: (a, kw, o)):
         fitted = d3.fit_scene(video01, seg, fit_dp.intrs[:, 0], fit_dp.extrs[:, 0], xyz, rgb, is_fg, d3cfg, seed=0,
                               device=dev)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t1
-    paths["dynamic3dgs_fit"] = made("knn")
+    paths["dynamic3dgs_fit"] = {"knn": timing_torch.launches(mark)["knn"]}
     steps = D3_ITERS_FIRST + (FIT_T - 1) * D3_ITERS_REST
     log(f"last models (c) Dynamic 3DGS fit_scene, capacity {d3cfg.capacity}, {V} views x {H}x{W}, {FIT_T} frames, "
         f"{len(xyz)} cloud points: {steps} steps in {fit_s:.1f} s, {fit_s / steps * 1e3:.1f} ms a step with "
@@ -3189,7 +3073,7 @@ def phase_last_models(torch, smi, knn_ops, corr_ops):
                 if not (torch.equal(x, y) if exact else bool(((x - y).abs() <= 1e-6 * (1 + y.abs())).all())):
                     raise AssertionError(f"densify ({label}) card vs CPU: {part} {key} differ")
         twin_calls = []
-        with recording(d3, "knn", twin_calls, knn_call):
+        with timing_torch.recording(d3, "knn", twin_calls, knn_call):
             d3.build_rigidity_refs(got[0], d3cfg)
         h = recorded_knn_against_exact(torch, knn_ops, twin_calls, self_query=True)[0]
         log(f"last models (c) densification {label}, the threshold lowered to {forced_cfg.grad_thresh:.3e}: {clones} "
@@ -3256,17 +3140,17 @@ def phase_last_models(torch, smi, knn_ops, corr_ops):
     fg_sel, bg_sel = pick[is_fg[pick] > 0.5], pick[is_fg[pick] <= 0.5]
     somcfg = som.SOMConfig(iters=SOM_ITERS, segment_iters=SOM_SEGMENT)
     knn_calls = []
-    reset()
+    mark = timing_torch.launches()
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
-    with recording(som, "knn", knn_calls, knn_call):
+    with timing_torch.recording(som, "knn", knn_calls, knn_call):
         params = som.fit_scene(video01, fit_dp.intrs[:, 0], fit_dp.extrs[:, 0], xyz[fg_sel], rgb[fg_sel], xyz[bg_sel],
                                rgb[bg_sel], depth=fit_dp.videodepth, mask=seg,
                                tracks3d=fit_dp.trajectory_3d.transpose(1, 0, 2),
                                tracks3d_valid=fit_dp.visibility.any(0).T, cfg=somcfg, seed=0, device=dev)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t1
-    paths["shape_of_motion_fit"] = made("knn")
+    paths["shape_of_motion_fit"] = {"knn": timing_torch.launches(mark)["knn"]}
     tracks, vis = som.extract_tracks(params, fit_dp.query_points_3d, FIT_T, fit_dp.videodepth, fit_dp.intrs[:, 0],
                                      fit_dp.extrs[:, 0])
     if not np.isfinite(tracks).all():
@@ -3369,22 +3253,6 @@ def check_built() -> None:
         raise RuntimeError(f"kernels {missing} are not built: a child would build them itself")
 
 
-def counters():
-    """{kernel: its wrapper}, each wrapper holding its `launches`."""
-    from scripts.timing_torch import kernel_counters
-
-    return kernel_counters()
-
-
-def reset_counts() -> None:
-    for fn in counters().values():
-        fn.launches = 0
-
-
-def read_counts() -> dict:
-    return {name: fn.launches for name, fn in counters().items() if fn.launches}
-
-
 def level0_cloud(torch, scene, frames, dev):
     """The level-0 xyz cloud [frames, P, 3] of a scene's first frames, as the
     tracker builds it (stride 4, every view)."""
@@ -3413,12 +3281,12 @@ def par_knn(torch, rank, world, spec):
         fn = knn_ops.knn_sharded_ring if schedule == "ring" else knn_ops.knn_sharded
         fn(shard, query, k, group)  # warm-up, not counted
         torch.cuda.synchronize()
-        reset_counts()
+        mark = timing_torch.launches()
         t0 = time.perf_counter()
         d, i = fn(shard, query, k, group)
         torch.cuda.synchronize()
         out[name] = {"d": d.cpu().numpy(), "i": i.cpu().numpy(), "ms": (time.perf_counter() - t0) * 1e3,
-                     "launches": read_counts()}
+                     "launches": timing_torch.launches(mark)}
     return out
 
 
@@ -3444,23 +3312,19 @@ def par_knn_mesh(torch, rank, world, spec):
     from mvtracker_torch.parallel.mesh import make_mesh
 
     model = flagship_bf16(torch, PAR_DEVICE, knn_mesh=make_mesh(1, world, backend="gloo"))
-    schedules = {"gather": 0, "ring": 0}
-    for name, attr in (("gather", "knn_sharded"), ("ring", "knn_sharded_ring")):
-        def counted(*a, _fn=getattr(knn_ops, attr), _name=name, **kw):
-            schedules[_name] += 1
-            return _fn(*a, **kw)
-        setattr(knn_ops, attr, counted)
     out = []
     for scene in mesh_requests(spec["queries"]):
         scene = to_device(scene, torch.device(PAR_DEVICE))
         torch.cuda.synchronize()
-        reset_counts()
-        schedules.update(gather=0, ring=0)
+        mark, ran = timing_torch.launches(), []
         t0 = time.perf_counter()
-        res = model(*scene, iters=ITERS)
+        with timing_torch.recording(knn_ops, "knn_sharded", ran, lambda a, kw, o: "gather"), \
+                timing_torch.recording(knn_ops, "knn_sharded_ring", ran, lambda a, kw, o: "ring"):
+            res = model(*scene, iters=ITERS)
         torch.cuda.synchronize()
         out.append({"traj": res["traj"].float().cpu().numpy(), "vis": res["vis"].float().cpu().numpy(),
-                    "ms": (time.perf_counter() - t0) * 1e3, "launches": read_counts(), "schedules": dict(schedules)})
+                    "ms": (time.perf_counter() - t0) * 1e3, "launches": timing_torch.launches(mark),
+                    "schedules": {name: ran.count(name) for name in ("gather", "ring")}})
     return out
 
 
@@ -3533,9 +3397,9 @@ def par_step(torch, rank, world, spec):
     flags = dict(shard_views=spec["shard_views"], shard_tracks=spec["shard_tracks"])
     model = par_step_model(torch, device, spec["width"])
     local = mesh_lib.shard_batch_pytree(par_step_batch(*spec["scene"]), mesh)
-    reset_counts()
+    mark = timing_torch.launches()
     got = par_run_steps(torch, model, local, PAR_STEPS, mesh=mesh, **flags)
-    got["parity_launches"] = read_counts()
+    got["parity_launches"] = timing_torch.launches(mark)
     got["digest"] = float(sum(float(np.abs(p).astype(np.float64).sum()) for p in got["params"].values()))
     if rank != 0:
         for key in ("params", "mu", "mu_last", "nu_last"):
@@ -3550,9 +3414,10 @@ def par_step(torch, rank, world, spec):
              for k, v in mesh_lib.shard_batch_pytree(par_step_batch(V, T, H, W, N_QUERIES, seed=0), mesh).items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    mark = timing_torch.launches()
     timed = par_run_steps(torch, model, local, spec["bf16_steps"], mesh=mesh, exact=False, **flags)
-    got["bf16"] = {"ms": timed["ms"], "loss": [m["loss"] for m in timed["metrics"]], "launches": read_counts(),
+    got["bf16"] = {"ms": timed["ms"], "loss": [m["loss"] for m in timed["metrics"]],
+                   "launches": timing_torch.launches(mark),
                    "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
     return got
 
@@ -3855,7 +3720,7 @@ def phase_parallel(torch, smi, knn_ops, corr_ops):
     argv = ["--config", str(ROOT / "configs" / "mvtracker.yaml"), "--device", PAR_DEVICE, "trainer.total_steps=3",
             "trainer.save_ckpt_freq=3", f"trainer.exp_dir={exp}", "trainer.telemetry_freq=1", "model.num_heads=8",
             "model.sliding_window_len=8"]
-    reset_counts()
+    mark = timing_torch.launches()
     t0 = time.perf_counter()
     try:
         state = cli_train.main(argv)
@@ -3869,7 +3734,8 @@ def phase_parallel(torch, smi, knn_ops, corr_ops):
             else:
                 os.environ[key] = value
     train_s = time.perf_counter() - t0
-    paths["parallel_cli_train"] = {key: read_counts().get(key, 0) for key in ("knn", "corr", "corr_bwd")}
+    made = timing_torch.launches(mark)
+    paths["parallel_cli_train"] = {key: made[key] for key in ("knn", "corr", "corr_bwd")}
     trained = {name: p.detach().clone() for name, p in state.model.named_parameters()}
     del state
     torch.cuda.empty_cache()
@@ -3906,12 +3772,12 @@ def phase_parallel(torch, smi, knn_ops, corr_ops):
     target = torch.cat(views).contiguous()
     r_true, t_true = rotation([0.3, 1.0, 0.2], 2.0), np.array([0.01, -0.015, 0.008])
     source = torch.as_tensor(((target.numpy() - t_true) @ r_true).astype(np.float32))
-    reset_counts()
+    mark = timing_torch.launches()
     t0 = time.perf_counter()
     r_gpu, t_gpu, fit_gpu = icp.icp(source.to(dev), target.to(dev), iters=ICP_ITERS)
     torch.cuda.synchronize()
     icp_ms = (time.perf_counter() - t0) * 1e3
-    icp_counts = read_counts()
+    icp_counts = timing_torch.launches(mark)
     t0 = time.perf_counter()
     r_cpu, t_cpu, fit_cpu = icp.icp(source, target, iters=ICP_ITERS)
     icp_cpu_s = time.perf_counter() - t0
@@ -3924,11 +3790,11 @@ def phase_parallel(torch, smi, knn_ops, corr_ops):
         f"card {icp_ms:.1f} ms, launches {icp_counts}; recovered to {ang:.4f} degree and {t_err * 1e3:.4f} mm, "
         f"fitness {float(fit_gpu):.4f}; card vs CPU ({icp_cpu_s:.1f} s) pose {pose_gap:.3e} (limit {ICP_POSE_ATOL}), "
         f"fitness {fit_gap:.3e} (limit {ICP_FIT_ATOL}) [{smi}]")
-    if icp_counts != {"knn": 1 + ICP_ITERS}:
-        raise AssertionError(f"ICP launches {icp_counts}, want {{'knn': {1 + ICP_ITERS}}}")
+    if icp_counts["knn"] != 1 + ICP_ITERS or sum(icp_counts.values()) != 1 + ICP_ITERS:
+        raise AssertionError(f"ICP launches {icp_counts}, want {1 + ICP_ITERS} of K1 and no other")
     if not (ang < 0.1 and t_err < 1e-3 and pose_gap <= ICP_POSE_ATOL and fit_gap <= ICP_FIT_ATOL):
         raise AssertionError("parallel (e): ICP did not recover the pose, or the card and the CPU disagree")
-    paths["parallel_icp"] = icp_counts
+    paths["parallel_icp"] = {"knn": icp_counts["knn"]}
 
     # The z-offset search: view 1 seen from its own camera with a z bias,
     # against view 0 in the world.
@@ -3938,11 +3804,11 @@ def phase_parallel(torch, smi, knn_ops, corr_ops):
     local[:, 2] -= z_true
     frame = {"wrist_points_local": local.numpy(), "wrist_cam_to_world": c2w.numpy(),
              "external_points_world": views[0].numpy()}
-    reset_counts()
+    mark = timing_torch.launches()
     t0 = time.perf_counter()
     z_gpu, zfit_gpu = icp.optimize_wrist_z_offset(**frame, device=PAR_DEVICE)
     z_ms = (time.perf_counter() - t0) * 1e3
-    z_counts = read_counts()
+    z_counts = timing_torch.launches(mark)
     z_cpu, zfit_cpu = icp.optimize_wrist_z_offset(**frame, device="cpu")
     log(f"parallel (e) wrist z offset {z_true} (view 1 from its camera against view 0, {local.shape[0]} and "
         f"{views[0].shape[0]} points): card {z_gpu:.6f} (fitness {zfit_gpu:.4f}, {z_ms:.1f} ms, "
@@ -4029,7 +3895,8 @@ def phase_parallel(torch, smi, knn_ops, corr_ops):
                 f"{ties} tied neighbour pairs, {off} indices of the global {global_kernel} search ordered otherwise; "
                 f"launches per rank {per_rank}; ms per rank {[round(r['knn'][name]['ms'], 2) for r in ranks]} "
                 f"[{smi}]")
-            if any(set(c) != {"knn"} or c["knn"] != (1 if schedule == "gather" else world) for c in per_rank):
+            k1_a_rank = 1 if schedule == "gather" else world
+            if any(c["knn"] != k1_a_rank or sum(c.values()) != k1_a_rank for c in per_rank):
                 raise AssertionError(f"parallel (a) {name}: launches per rank {per_rank}")
     paths["parallel_knn"] = {"knn": sum(c["knn"] for c in k1.values())}
 
@@ -4085,8 +3952,8 @@ def phase_parallel(torch, smi, knn_ops, corr_ops):
             f"ms per step per rank {[[round(x, 1) for x in b['ms']] for b in bf16]}, peak memory per rank "
             f"{[round(b['peak_mib'], 1) for b in bf16]} MiB, losses {bf16[0]['loss']}, launches per rank "
             f"{[b['launches'] for b in bf16]} [{smi}]")
-        want_steps = {"knn": K1_PER_FWD * PAR_BF16_STEPS, "corr": K2_PER_FWD * PAR_BF16_STEPS,
-                      "corr_bwd": K3_PER_STEP * PAR_BF16_STEPS}
+        want_steps = {"knn": K1_PER_FWD * PAR_BF16_STEPS, "knn_tiled": 0, "knn_exact": 0,
+                      "corr": K2_PER_FWD * PAR_BF16_STEPS, "corr_bwd": K3_PER_STEP * PAR_BF16_STEPS}
         if any(b["launches"] != want_steps for b in bf16) or not all(np.isfinite(b["loss"]).all() for b in bf16):
             raise AssertionError(f"parallel (c) {label} bf16: launches {[b['launches'] for b in bf16]}, want "
                                  f"{want_steps}; losses {[b['loss'] for b in bf16]}")
@@ -4299,13 +4166,13 @@ def phase_droid(torch, smi, job):
     plain_argv = ["track", "--episode", ep, "--out", str(root / "plain.npz"), "--chunk_frames", str(DROID_CHUNK),
                   "--max_frames", str(DROID_PLAIN_FRAMES), "--dtype", "float32"]
     track_cpu = beside_cpu(droid_plain_request, plain_argv + ["--device", "cpu"])
-    reset_counts()
+    mark = timing_torch.launches()
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         droid_cli.main(["refine", "--episode", biased, "--device", DROID_DEVICE])
     refine_s = time.perf_counter() - t0
-    paths["droid_refine"] = {"knn": read_counts().get("knn", 0)}
+    paths["droid_refine"] = {"knn": timing_torch.launches(mark)["knn"]}
     card = json.loads(out.getvalue().strip().splitlines()[-1])
     cpu, cpu_s = refine_cpu()
     z_err = abs(card["wrist_z_offset_m"] - DROID_Z_TRUE)
@@ -4327,7 +4194,7 @@ def phase_droid(torch, smi, job):
     track_counts = {}
     for name, episode, extra in (("gripper", ep, []),
                                  ("depth", masked, ["--queries", "depth", "--num_queries", str(DROID_QUERIES)])):
-        reset_counts()
+        mark = timing_torch.launches()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -4335,7 +4202,8 @@ def phase_droid(torch, smi, job):
                               str(DROID_CHUNK), "--overlay", str(root / f"{name}_overlay.mp4"), "--device",
                               DROID_DEVICE, *extra])
         first_s = time.perf_counter() - t0
-        track_counts[name] = {k: read_counts().get(k, 0) for k in ("knn", "corr")}
+        made = timing_torch.launches(mark)
+        track_counts[name] = {k: made[k] for k in ("knn", "corr")}
         traj, vis = to_host(res["traj"]), to_host(res["vis"])
         written = sorted(p.name for p in root.iterdir() if p.name.startswith(f"{name}_overlay"))
         log(f"droid (d) cli.droid track --queries {name} (bf16, seeded weights, 6 iterations, grid 5, "
@@ -4418,12 +4286,13 @@ def phase_droid(torch, smi, job):
             "model.compute_dtype=bfloat16", f"trainer.total_steps={DROID_TRAIN_STEPS}",
             f"trainer.exp_dir={root / 'train'}", "trainer.telemetry_freq=1", "trainer.save_ckpt_freq=1000"]
     torch.cuda.empty_cache()
-    reset_counts()
+    mark = timing_torch.launches()
     t0 = time.perf_counter()
     with LogRecords() as logs:
         state = cli_train.main(argv)
     train_s = time.perf_counter() - t0
-    paths["droid_train"] = {k: read_counts().get(k, 0) for k in ("knn", "corr", "corr_bwd")}
+    made = timing_torch.launches(mark)
+    paths["droid_train"] = {k: made[k] for k in ("knn", "corr", "corr_bwd")}
     # adaptive_iters with 100 warm-up steps: one iteration a step.
     want = {"knn": DROID_TRAIN_STEPS * (1 + 3 * windows), "corr": DROID_TRAIN_STEPS * 4 * windows,
             "corr_bwd": DROID_TRAIN_STEPS * 4 * windows}
@@ -4480,22 +4349,13 @@ NORTH_PLAIN_LIMITS = {
 FT_STEPS = 3  # (d) `train_droid_ft_torch.py` steps from (c)'s weights
 
 
-def counted(knn_ops, corr_ops):
-    """A context that records every kNN search and every neighbour
-    correlation the block asks for (the dispatchers' calls), beside the
-    kernels' launch counters."""
-    stack = contextlib.ExitStack()
-    searches, correlations = [], []
-    stack.enter_context(recording(knn_ops, "knn", searches, keep=lambda a, kw, out: 1))
-    stack.enter_context(recording(corr_ops, "corr_select", correlations, keep=lambda a, kw, out: 1))
-    return stack, searches, correlations
-
-
-def every_search_launched(path, counts, searches, correlations) -> None:
+def every_search_launched(path, counts) -> None:
     """Each kNN search went to K1 and each correlation to K2: as many
-    launches as calls, none of them zero."""
-    if not (counts["knn"] == len(searches) > 0 and counts["corr"] == len(correlations) > 0):
-        raise AssertionError(f"{path}: launches {counts} for {len(searches)} kNN searches and {len(correlations)} "
+    launches as dispatcher calls in a `timing_torch.counted` block, none of
+    them zero."""
+    launches, calls = counts["launches"], counts["calls"]
+    if not (launches["knn"] == calls["knn"] > 0 and launches["corr"] == calls["corr"] > 0):
+        raise AssertionError(f"{path}: launches {launches} for {calls['knn']} kNN searches and {calls['corr']} "
                              "correlations")
 
 
@@ -4583,16 +4443,14 @@ def phase_slice(torch, smi, job, release):
     np.savez(root / "sample.npz", rgbs=rgbs, depths=depths, query_points=query, intrs=intrs, extrs=extrs)
     demo_trainer = Trainer(model, TrainConfig(exp_dir=str(root / "demo_exp"), tensorboard=False, watchdog_timeout_s=0))
     demo_trainer.save(step_lib.init_state(model, demo_trainer.optimizer), 1)
-    reset_counts()
-    stack, searches, correlations = counted(knn_ops, corr_ops)
     t0 = time.perf_counter()
-    with stack, LogRecords() as logs:
+    with timing_torch.counted() as counts, LogRecords() as logs:
         res = demo_cli.main(["--sample", str(root / "sample.npz"), "--out", str(root / "demo.npz"), "--ckpt_dir",
                              str(root / "demo_exp"), "--chunk_frames", str(DEMO_CHUNK), "--mp4",
                              str(root / "demo.mp4"), "--device", SLICE_DEVICE])
     demo_s = time.perf_counter() - t0
-    paths["demo"] = {k: read_counts().get(k, 0) for k in ("knn", "corr")}
-    every_search_launched("slice (b) demo", paths["demo"], searches, correlations)
+    paths["demo"] = {k: counts["launches"][k] for k in ("knn", "corr")}
+    every_search_launched("slice (b) demo", counts)
     # `viz/mp4.save_video`: an mp4 or a GIF where imageio can write one, else an .npz frame stack.
     written = sorted(p.name for p in root.iterdir() if p.name in ("demo.mp4", "demo.gif", "demo.mp4.npz"))
     saved = np.load(root / "demo.npz")
@@ -4606,7 +4464,7 @@ def phase_slice(torch, smi, job, release):
     log(f"slice (b) python -m mvtracker_torch.cli.demo --chunk_frames {DEMO_CHUNK} --mp4 (flagship fp32, seeded "
         f"weights from --ckpt_dir, {V} views x {T} frames x {W}x{H}, {N_QUERIES} queries, 6 iterations): "
         f"{demo_s:.1f} s with the model's build ({tracked[-1] if tracked else 'no timing logged'}), launches "
-        f"{paths['demo']} for {len(searches)} kNN searches and {len(correlations)} correlations; traj_e "
+        f"{paths['demo']} for {counts['calls']['knn']} kNN searches and {counts['calls']['corr']} correlations; traj_e "
         f"{saved['traj_e'].shape} and vis_e bit-equal to the predictor called directly: {equal}; "
         f"mosaic written as {written} [{smi}]")
     if not (equal and written and np.isfinite(saved["traj_e"]).all() and saved["traj_e"].shape == (T, N_QUERIES, 3)):
@@ -4633,15 +4491,13 @@ def phase_slice(torch, smi, job, release):
             str(NORTH_EPISODE["width"]), "--height", str(NORTH_EPISODE["height"]), "--external_cams",
             str(NORTH_EPISODE["n_external_cams"]), "--track_points", str(NORTH_EPISODE["num_track_points"]),
             "--params_msgpack", weights, "--out_json", str(root / "north_star.json"), "--device", SLICE_DEVICE]
-    reset_counts()
-    stack, searches, correlations = counted(knn_ops, corr_ops)
     out = io.StringIO()
     t0 = time.perf_counter()
-    with stack, contextlib.redirect_stdout(out):
+    with timing_torch.counted() as counts, contextlib.redirect_stdout(out):
         results = north_star.main(argv)
     north_s = time.perf_counter() - t0
-    paths["north_star"] = {k: read_counts().get(k, 0) for k in ("knn", "corr")}
-    every_search_launched("slice (c) north star", paths["north_star"], searches, correlations)
+    paths["north_star"] = {k: counts["launches"][k] for k in ("knn", "corr")}
+    every_search_launched("slice (c) north star", counts)
     line = json.loads(out.getvalue().strip().splitlines()[-1])
     proto = results["protocol"]
     log(f"slice (c) scripts/eval_droid_track_error_torch.py ({'release' if release else 'seeded'} weights, strict "
@@ -4650,7 +4506,8 @@ def phase_slice(torch, smi, job, release):
         f"{waited:.1f} s; world scale {proto['world_scale']:.4f}; backend {proto['backend']}): median 3D track error "
         f"{line['median_3d_track_error_m']:.6f} m, CopyCat {line['copycat_median_m']:.6f} m, fps {line['fps']:.2f} "
         f"(the first timed call of the shape, as the JAX script times it); {north_s:.1f} s; launches "
-        f"{paths['north_star']} for {len(searches)} kNN searches and {len(correlations)} correlations [{smi}]")
+        f"{paths['north_star']} for {counts['calls']['knn']} kNN searches and {counts['calls']['corr']} correlations "
+        f"[{smi}]")
     if not all(np.isfinite(line[k]) for k in line):
         raise AssertionError(f"slice (c): non-finite results {line}")
     # The model's predictor on the card against the plain CPU path, on the
@@ -4695,13 +4552,11 @@ def phase_slice(torch, smi, job, release):
 
         return step
 
-    reset_counts()
-    stack, searches, correlations = counted(knn_ops, corr_ops)
     out = io.StringIO()
     Trainer._get_step_fn = loss_recording
     t0 = time.perf_counter()
     try:
-        with stack, contextlib.redirect_stdout(out):
+        with timing_torch.counted() as counts, contextlib.redirect_stdout(out):
             report = finetune.main(["--episodes_root", os.path.join(ep_root, "processed"), "--eval_root", ep_root,
                                     "--eval_episodes", "1", "--steps", str(FT_STEPS), "--workers", "1",
                                     "--eval_every", "0", "--save_every", str(FT_STEPS), "--warm_start", weights,
@@ -4709,8 +4564,8 @@ def phase_slice(torch, smi, job, release):
     finally:
         Trainer._get_step_fn = get_step
     ft_s = time.perf_counter() - t0
-    paths["droid_finetune"] = {k: read_counts().get(k, 0) for k in ("knn", "corr", "corr_bwd")}
-    every_search_launched("slice (d) fine-tune", paths["droid_finetune"], searches, correlations)
+    paths["droid_finetune"] = {k: counts["launches"][k] for k in ("knn", "corr", "corr_bwd")}
+    every_search_launched("slice (d) fine-tune", counts)
     evals = (exp / "eval_log.jsonl").read_text().splitlines()
     ours = report["ours"]
     log(f"slice (d) scripts/train_droid_ft_torch.py --steps {FT_STEPS} (medium fp32, warm start from (c)'s "
@@ -4718,7 +4573,7 @@ def phase_slice(torch, smi, job, release):
         f"with the warm start and {len(evals)} evaluation (ATE {ours.get('ate_visible', float('nan')):.2f}, AJ "
         f"{ours.get('average_jaccard', float('nan')):.2f}; CopyCat ATE "
         f"{report['copycat'].get('ate_visible', float('nan')):.2f}); launches {paths['droid_finetune']} for "
-        f"{len(searches)} kNN searches and {len(correlations)} correlations [{smi}]")
+        f"{counts['calls']['knn']} kNN searches and {counts['calls']['corr']} correlations [{smi}]")
     if not (len(losses) == FT_STEPS and all(np.isfinite(losses)) and report["steps"] == FT_STEPS and len(evals) == 1
             and paths["droid_finetune"]["corr_bwd"] > 0 and (exp / "checkpoints" / f"step_{FT_STEPS}.pt").exists()):
         raise AssertionError(f"slice (d): losses {losses}, evaluations {len(evals)}, launches "
@@ -4774,8 +4629,8 @@ def check_measured(name, report, card, timed) -> None:
 
 def phase_measurement(torch, smi):
     """Phase 17: each twin of the JAX package's measurement scripts driven
-    in-process (`MEASURE_ARGS`), the counts at 0 before each path; the
-    supervisor in a process of its own. Returns ({path: launch totals} of
+    in-process (`MEASURE_ARGS`), each path's launches counted from a
+    reading just before it; the supervisor in a process of its own. Returns ({path: launch totals} of
     the model's paths, {path: counts} of the paths that launch nothing)."""
     sys.path.insert(0, str(ROOT))
     import bench_torch
@@ -4786,7 +4641,6 @@ def phase_measurement(torch, smi):
     from scripts import profile_knn_reuse_torch as reuse
     from scripts import profile_sharded_knn_torch as sharded
     from scripts import profile_torch_train_step as train_step
-    from scripts import timing_torch
 
     card = torch.cuda.get_device_name(0)
     twins = {"bench_serving": bench_torch, "bench_train": bench_torch, "bench_eval_fps": bench_torch,
@@ -4811,14 +4665,14 @@ def phase_measurement(torch, smi):
         timed["bench_serving"] = tuple(key for key in timed["bench_serving"] if key != "/mfu")
     paths, free, reports, seconds = {}, {}, {}, {}
     for path, args in MEASURE_ARGS.items():
-        reset_counts()
+        mark = timing_torch.launches()
         # One call of the twin's main, timed on the host up to a synchronize;
         # what it prints (its own JSON lines too) is summarised below instead.
         argv = [*args, "--device", "cuda"]
         with contextlib.redirect_stdout(io.StringIO()):
             times = timing_torch.host_ms(lambda: reports.update({path: twins[path].main(argv)}), "cuda", 1)
         seconds[path] = times[0] / 1e3 if times else float("nan")
-        counts = {name: fn.launches for name, fn in counters().items()}
+        counts = timing_torch.launches(mark)
         check_measured(path, reports[path], card, timed[path])
         if path == "sharded_knn_profile":  # the ranks' launches, counted in their processes
             counts = dict.fromkeys(counts, 0)
@@ -4833,13 +4687,13 @@ def phase_measurement(torch, smi):
         log(f"measure {path}: {seconds[path]:.1f} s, launches {counts} [{smi}]")
 
     # The supervisor: one probe of the card, then a command that exits 0.
-    reset_counts()
+    mark = timing_torch.launches()
     t0 = time.perf_counter()
     sup = subprocess.run(["bash", str(ROOT / "scripts" / "run_supervised_train_torch.sh"), sys.executable, "-c",
                           "print('trained')"], capture_output=True, text=True, timeout=600,
                          env=dict(os.environ, SETTLE_S="0", PROBE_SLEEP_S="0", PROBE_TRIES="1"))
     seconds["supervisor"] = time.perf_counter() - t0
-    free["supervisor"] = {name: fn.launches for name, fn in counters().items()}
+    free["supervisor"] = timing_torch.launches(mark)
     log(f"measure supervisor: rc {sup.returncode}, {seconds['supervisor']:.1f} s; stdout {sup.stdout.strip()!r}; "
         f"stderr {sup.stderr.strip()!r} [{smi}]")
     if not (sup.returncode == 0 and sup.stdout.count("card ok:") == 1 and "trained" in sup.stdout
@@ -4956,41 +4810,41 @@ def main() -> int:
         took(2, t0, "kernels against their plain versions")
     if wanted(3):
         t0 = time.perf_counter()
-        serving = phase_main_path(torch, MVTracker, random_state_dict, make_scene, knn_ops, corr_ops)
+        serving = phase_main_path(torch, MVTracker, random_state_dict, make_scene)
         took(3, t0, "serving")
     if wanted(4):
         t0 = time.perf_counter()
-        phase_end_to_end(torch, MVTracker, random_state_dict, make_scene, knn_ops)
+        phase_end_to_end(torch, MVTracker, random_state_dict, make_scene)
         took(4, t0, "fp32 forward against the plain CPU path")
     if wanted(5):
         t0 = time.perf_counter()
-        training = phase_train_path(torch, smi, MVTracker, random_state_dict, make_scene, knn_ops, corr_ops)
+        training = phase_train_path(torch, smi, MVTracker, random_state_dict, make_scene)
         took(5, t0, "training")
     if wanted(6):
         t0 = time.perf_counter()
-        phase_train_end_to_end(torch, MVTracker, random_state_dict, make_scene, corr_ops)
+        phase_train_end_to_end(torch, MVTracker, random_state_dict, make_scene)
         took(6, t0, "fp32 train step against the plain CPU path")
     if wanted(7) or wanted(8):
         t0 = time.perf_counter()
-        large, cloud = phase_large_cloud(torch, smi, MVTracker, random_state_dict, make_scene, knn_ops, corr_ops)
+        large, cloud = phase_large_cloud(torch, smi, MVTracker, random_state_dict, make_scene)
         direct = phase_direct_knn(torch, smi, knn_ops, cloud)
         took("7 and 8", t0, "large cloud, direct kNN")
     if wanted(9):
         t0 = time.perf_counter()
-        evaluation = phase_evaluation(torch, smi, knn_ops, corr_ops, cli.release)
+        evaluation = phase_evaluation(torch, smi, cli.release)
         took(9, t0, "evaluation")
     if wanted(10):
         t0 = time.perf_counter()
-        options = phase_options(torch, smi, knn_ops, corr_ops, cli.release)
+        options = phase_options(torch, smi, knn_ops, cli.release)
         log(f"phase 10 (options, warm start, config CLIs) took {time.perf_counter() - t0:.1f} s [{smi}]")
     if wanted(11):
         t0 = time.perf_counter()
-        data_path = phase_data_path(torch, smi, knn_ops, corr_ops)
+        data_path = phase_data_path(torch, smi)
         log(f"phase 11 (native data path, augmented training, crash replay, real dataset formats) took "
             f"{time.perf_counter() - t0:.1f} s [{smi}]")
     if wanted(12):
         t0 = time.perf_counter()
-        families = phase_other_families(torch, smi, knn_ops, corr_ops)
+        families = phase_other_families(torch, smi)
         log(f"phase 12 (triplane SpaTracker, learned 2D tracker, monocular zoo) took {time.perf_counter() - t0:.1f} s "
             f"[{smi}]")
         # These paths have no kNN and no neighbour correlation.
@@ -4999,7 +4853,7 @@ def main() -> int:
                 raise AssertionError(f"the {path} path launched {counts}; it has no kNN or correlation stage")
     if wanted(13):
         t0 = time.perf_counter()
-        last, last_free = phase_last_models(torch, smi, knn_ops, corr_ops)
+        last, last_free = phase_last_models(torch, smi, knn_ops)
         log(f"phase 13 (VGGT-1B, generic scene to tracker, Dynamic 3DGS, Shape of Motion) took "
             f"{time.perf_counter() - t0:.1f} s [{smi}]")
         for path, counts in last_free.items():
@@ -5039,8 +4893,8 @@ def main() -> int:
         log(f"partial run of phases {sorted(only)} passed; no kernels line and no result line")
         return 0
 
-    # Each path was driven with the counts at 0 just before it; every kernel
-    # of a path must have been launched in that path's run.
+    # Each path's launches are counted from a reading just before it; every
+    # kernel of a path must have been launched in that path's run.
     paths = {"serving": serving, "training": training, "large_cloud": large, "direct_knn": direct,
              "evaluation": evaluation, **options, **data_path, **last, **parallel, **droid, **slice_paths,
              **measurement}

@@ -157,6 +157,12 @@ class CallGraph:
         self.key = None  # signature of `graph` while its static tensors live
         self.buf = self.x = self.mask = self.out = None
 
+    def __deepcopy__(self, memo):
+        """A copy starts with no graph: the capture's stream, pool, graph and
+        static tensors belong to this object's device, and none of them
+        copies."""
+        return CallGraph(self.name)
+
     @contextlib.contextmanager
     def scope(self):
         self.depth += 1

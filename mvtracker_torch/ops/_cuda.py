@@ -5,8 +5,12 @@ library with a plain C interface and loaded with `ctypes`. A library is
 built at first use and rebuilt when its source, a shared header
 (`csrc/*.cuh`) or the flags change (the file name carries a hash of all
 three), so a fresh checkout builds everything
-the first time a kernel is called. Nothing is built or imported when this
+the first time a kernel is called. Nothing is built or loaded when this
 module is imported: the CPU test host has no `nvcc`.
+
+Every launch goes through `launch`, which counts it in `launches`, one
+`collections.Counter` keyed by library name; the measurement scripts read it
+(`scripts/timing_torch.py`).
 
 Build outputs go to `mvtracker_torch/_build/` (listed in `.gitignore`).
 """
@@ -18,7 +22,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+from collections import Counter
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -40,6 +47,8 @@ ENTRIES = {
 SOURCES = tuple(ENTRIES)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# Launches that reached a library's C entry and returned 0, by library name.
+launches: Counter = Counter()
 
 
 def _nvcc() -> str:
@@ -108,3 +117,17 @@ def check(lib: ctypes.CDLL, status: int, what: str) -> None:
     if status != 0:
         msg = lib.mvt_error_string(status).decode()
         raise RuntimeError(f"{what}: CUDA error {status} ({msg}) at launch")
+
+
+def launch(name: str, entry: str, *args) -> None:
+    """Call the C entry `entry` of library `name` on the current stream of
+    the first tensor's device; tensors in `args` go as their data pointers,
+    the stream as the last argument. Raises on a CUDA error; otherwise adds
+    one to `launches[name]`."""
+    device = next(a.device for a in args if isinstance(a, torch.Tensor))
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    lib = load(name)
+    with torch.cuda.device(device):
+        status = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
+    check(lib, status, entry)
+    launches[name] += 1

@@ -78,8 +78,7 @@ def corr_select_cuda(fvec: torch.Tensor, targets: torch.Tensor, idx: torch.Tenso
     """The CUDA kernel `csrc/corr.cu`; same contract as `corr_select_plain`,
     for float32 or bfloat16 of one type, or a bfloat16 fvec with float32
     targets (rounded to bfloat16 in the kernel as they load). The sums run in
-    a fixed order: the same inputs give the same bits. Adds one to
-    `corr_select_cuda.launches` per kernel launch."""
+    a fixed order: the same inputs give the same bits."""
     if not (fvec.is_cuda and targets.device == fvec.device and idx.device == fvec.device):
         raise ValueError("corr_select_cuda needs fvec, targets and idx on one CUDA device")
     if fvec.dtype not in _DTYPE_CODES or targets.dtype not in (fvec.dtype, torch.float32):
@@ -107,21 +106,10 @@ def corr_select_cuda(fvec: torch.Tensor, targets: torch.Tensor, idx: torch.Tenso
     if max(b * n * k, b * n) >= 2**31:
         raise ValueError("corr_select_cuda: tensor too large for the kernel's indexing")
     out = torch.empty((b, n, k), dtype=torch.float32, device=fvec.device)
-    if out.numel() == 0:
-        return out
-    lib = _cuda.load("corr")
-    with torch.cuda.device(fvec.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.corr_forward(
-            fvec.data_ptr(), targets.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            b, n, p, k, c, _DTYPE_CODES[fvec.dtype], _DTYPE_CODES[targets.dtype], stream,
-        )
-    _cuda.check(lib, status, "corr_select_cuda")
-    corr_select_cuda.launches += 1
+    if out.numel():
+        _cuda.launch("corr", "corr_forward", fvec, targets, idx, out,
+                     b, n, p, k, c, _DTYPE_CODES[fvec.dtype], _DTYPE_CODES[targets.dtype])
     return out
-
-
-corr_select_cuda.launches = 0
 
 
 def corr_select_backward_plain(fvec: torch.Tensor, targets: torch.Tensor, idx: torch.Tensor, g: torch.Tensor):
@@ -191,8 +179,7 @@ def corr_select_backward_cuda(fvec: torch.Tensor, targets: torch.Tensor, idx: to
     """The CUDA kernels `csrc/corr_bwd.cu`, launched by one C call; same
     contract as `corr_select_backward_plain`, for a float32 or bfloat16 fvec
     and float32 targets (the tracker's track features are fp32 in both
-    models). Adds one to `corr_select_backward_cuda.launches` per call that
-    launches them.
+    models).
 
     `d_fvec` is summed tile by tile in shared memory and written once in
     fvec's dtype; both gradients are summed in a fixed order, so the same
@@ -230,19 +217,9 @@ def corr_select_backward_cuda(fvec: torch.Tensor, targets: torch.Tensor, idx: to
     if d_fvec.numel() == 0 and d_targets.numel() == 0:
         return d_fvec, d_targets
     rows, tiles, copies = corr_backward_plan(b, p, c, _multiprocessors(fvec.device.index))
-    lib = _cuda.load("corr_bwd")
-    with torch.cuda.device(fvec.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.corr_backward(
-            fvec.data_ptr(), targets.data_ptr(), idx.data_ptr(), g.data_ptr(), d_targets.data_ptr(),
-            d_fvec.data_ptr(), b, n, p, k, c, rows, tiles, copies, _DTYPE_CODES[fvec.dtype], stream,
-        )
-    _cuda.check(lib, status, "corr_select_backward_cuda")
-    corr_select_backward_cuda.launches += 1
+    _cuda.launch("corr_bwd", "corr_backward", fvec, targets, idx, g, d_targets, d_fvec,
+                 b, n, p, k, c, rows, tiles, copies, _DTYPE_CODES[fvec.dtype])
     return d_fvec, d_targets
-
-
-corr_select_backward_cuda.launches = 0
 
 
 def corr_select(fvec: torch.Tensor, targets: torch.Tensor, idx: torch.Tensor):

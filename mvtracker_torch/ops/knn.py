@@ -147,49 +147,30 @@ def _check_cuda_args(name: str, ref: torch.Tensor, query: torch.Tensor, k: int):
     return b, n, m
 
 
-def _launch_whole_cloud(name: str, entry: str, ref, query, k):
-    """Launch a kernel whose every warp scans the whole cloud (`knn.cu`,
-    `knn_exact.cu`: same C signature)."""
-    b, n, m = _check_cuda_args(name, ref, query, k)
-    dist = torch.empty((b, m, k), dtype=torch.float32, device=ref.device)
-    idx = torch.empty((b, m, k), dtype=torch.int64, device=ref.device)
-    if b == 0 or m == 0:
-        return dist, idx, False
-    lib = _cuda.load(entry)
-    with torch.cuda.device(ref.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = getattr(lib, f"{entry}_forward")(
-            ref.data_ptr(), query.data_ptr(), dist.data_ptr(), idx.data_ptr(), b, n, m, k, stream
-        )
-    _cuda.check(lib, status, name)
-    return dist, idx, True
+def _empty_result(ref: torch.Tensor, b: int, m: int, k: int):
+    """The kernels' outputs: distances [B, M, k] fp32, indices [B, M, k] int64."""
+    return (torch.empty((b, m, k), dtype=torch.float32, device=ref.device),
+            torch.empty((b, m, k), dtype=torch.int64, device=ref.device))
 
 
 def knn_cuda(ref: torch.Tensor, query: torch.Tensor, k: int):
     """The CUDA kernel `csrc/knn.cu` on CUDA tensors; same contract as
-    `knn_plain`. Adds one to `knn_cuda.launches`, and to
-    `knn_cuda.launches_by_k[k]`, per kernel launch."""
-    dist, idx, launched = _launch_whole_cloud("knn_cuda", "knn", ref, query, k)
-    knn_cuda.launches += launched
-    if launched:
-        knn_cuda.launches_by_k[k] = knn_cuda.launches_by_k.get(k, 0) + 1
+    `knn_plain`."""
+    b, n, m = _check_cuda_args("knn_cuda", ref, query, k)
+    dist, idx = _empty_result(ref, b, m, k)
+    if b and m:
+        _cuda.launch("knn", "knn_forward", ref, query, dist, idx, b, n, m, k)
     return dist, idx
-
-
-knn_cuda.launches = 0
-knn_cuda.launches_by_k = {}
 
 
 def knn_exact_cuda(ref: torch.Tensor, query: torch.Tensor, k: int):
     """The CUDA kernel `csrc/knn_exact.cu` on CUDA tensors; same contract as
-    `knn_exact_plain` (ties to the lower index). Adds one to
-    `knn_exact_cuda.launches` per kernel launch."""
-    dist, idx, launched = _launch_whole_cloud("knn_exact_cuda", "knn_exact", ref, query, k)
-    knn_exact_cuda.launches += launched
+    `knn_exact_plain` (ties to the lower index)."""
+    b, n, m = _check_cuda_args("knn_exact_cuda", ref, query, k)
+    dist, idx = _empty_result(ref, b, m, k)
+    if b and m:
+        _cuda.launch("knn_exact", "knn_exact_forward", ref, query, dist, idx, b, n, m, k)
     return dist, idx
-
-
-knn_exact_cuda.launches = 0
 
 
 def tiled_plan(b: int, n: int, m: int, resident_blocks: int) -> tuple[int, int]:
@@ -218,29 +199,17 @@ def tiled_resident_blocks(device_index: int, one: bool) -> int:
 
 def knn_tiled_cuda(ref: torch.Tensor, query: torch.Tensor, k: int):
     """The CUDA kernels `csrc/knn_tiled.cu` on CUDA tensors (a partial top-k
-    per span of the cloud, then a merge); same contract as `knn_plain`. Adds
-    one to `knn_tiled_cuda.launches` per call that launches them."""
+    per span of the cloud, then a merge, launched by one C call); same
+    contract as `knn_plain`."""
     b, n, m = _check_cuda_args("knn_tiled_cuda", ref, query, k)
-    dist = torch.empty((b, m, k), dtype=torch.float32, device=ref.device)
-    idx = torch.empty((b, m, k), dtype=torch.int64, device=ref.device)
+    dist, idx = _empty_result(ref, b, m, k)
     if b == 0 or m == 0:
         return dist, idx
     splits, span = tiled_plan(b, n, m, tiled_resident_blocks(ref.device.index, k == 1))
     ws_d = torch.empty((b, m, splits, k), dtype=torch.float32, device=ref.device)
     ws_i = torch.empty((b, m, splits, k), dtype=torch.int32, device=ref.device)
-    lib = _cuda.load("knn_tiled")
-    with torch.cuda.device(ref.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.knn_tiled_forward(
-            ref.data_ptr(), query.data_ptr(), dist.data_ptr(), idx.data_ptr(), ws_d.data_ptr(), ws_i.data_ptr(),
-            b, n, m, k, splits, span, stream,
-        )
-    _cuda.check(lib, status, "knn_tiled_cuda")
-    knn_tiled_cuda.launches += 1
+    _cuda.launch("knn_tiled", "knn_tiled_forward", ref, query, dist, idx, ws_d, ws_i, b, n, m, k, splits, span)
     return dist, idx
-
-
-knn_tiled_cuda.launches = 0
 
 
 def resolve_backend(backend: str, n: int) -> str:

@@ -43,7 +43,7 @@ import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import device_ms  # noqa: E402
+from scripts.timing_torch import device_ms  # noqa: E402
 
 B, N, K, C = 12, 256, 16, 128
 LEVELS = (16384, 4096, 1024, 256)

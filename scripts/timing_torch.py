@@ -1,21 +1,26 @@
 """Warm-up, timing and counting for the port's measurement scripts
 (`bench_torch.py` and `scripts/*_torch.py`, the twins of `bench.py` and the
-JAX profiling scripts) and for `chip_smoke.py`'s phase 17.
+JAX profiling scripts), `chip_smoke.py` and the card tests.
 
 It takes the place of the JAX scripts' scalar-fetch sync (`bench.py:96-104`):
 - a request or a step is timed on the host clock up to
   `torch.cuda.synchronize()` (`host_ms`, `lower_mean_ms`);
 - a stage is timed with CUDA events around many calls (`event_ms`);
+- a kernel's own device time is read from launches replayed from a CUDA
+  graph (`device_ms`, on the card only);
 - warm-up calls come first and are not timed.
 
-On the CPU (`--device cpu`, the tests) every timer runs its function once, so
-that outputs and counts are still computed, and returns None: no CPU time is
-reported under a device metric's name.
+On the CPU (`--device cpu`, the tests) `host_ms`, `lower_mean_ms` and
+`event_ms` run their function once, so that outputs and counts are still
+computed, and return None: no CPU time is reported under a device metric's
+name.
 
-`counted()` counts, within a block, the calls of the kNN and correlation
-dispatchers (`ops/knn.py::knn`, `ops/corr.py::corr_select`,
-`corr_select_backward`), which are the same on every device, and the launches
-of the five kernels, which happen on the card only.
+The five kernels' launches are counted in `mvtracker_torch/ops/_cuda.py`'s
+`launches`, read here by `launches`. `counted()` counts, within a block, those
+launches, which happen on the card only, and the calls of the kNN and
+correlation dispatchers (`ops/knn.py::knn`, `ops/corr.py::corr_select`,
+`corr_select_backward`), which are the same on every device; `recording`
+is how it sees the calls.
 """
 
 from __future__ import annotations
@@ -24,12 +29,16 @@ import contextlib
 import statistics
 import subprocess
 import time
+from unittest import mock
 
 import torch
 
-# Dense bf16 peak of the card (NVIDIA's data sheet, without sparsity), by the
-# name `torch.cuda.get_device_name` gives. "H100 80GB HBM3" is the SXM part.
-BF16_PEAK_FLOPS = {"NVIDIA H100 80GB HBM3": 989e12, "NVIDIA H100 SXM": 989e12}
+from mvtracker_torch.ops import _cuda
+
+# NVIDIA's data sheet for the H100 SXM part, dense rates without sparsity, by
+# the name `torch.cuda.get_device_name` gives. "H100 80GB HBM3" is the SXM part.
+_H100_SXM = {"bf16_flops": 989e12, "fp32_flops": 67e12, "hbm_bytes_per_s": 3.35e12}
+PEAKS = {"NVIDIA H100 80GB HBM3": _H100_SXM, "NVIDIA H100 SXM": _H100_SXM}
 
 
 def card(device) -> dict:
@@ -43,7 +52,7 @@ def card(device) -> dict:
 
 
 def bf16_peak(name) -> float | None:
-    return BF16_PEAK_FLOPS.get(name)
+    return PEAKS.get(name, {}).get("bf16_flops")
 
 
 def _on_card(device) -> bool:
@@ -107,6 +116,35 @@ def event_ms(fn, device, reps: int, warm: int = 2) -> float | None:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, replays: int = 3) -> float:
+    """Device ms per call of `fn` on the card: `reps` calls captured in one
+    CUDA graph, the graph replayed `replays` times between CUDA events. A
+    replay needs no host work per launch, so this is the kernels' own time,
+    back to back."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def spread(times: list[float] | None) -> dict:
     """Median, min and max of single-call times (all None without times)."""
     if not times:
@@ -114,19 +152,36 @@ def spread(times: list[float] | None) -> dict:
     return {"median": statistics.median(times), "min": min(times), "max": max(times)}
 
 
-def kernel_counters() -> dict:
-    from mvtracker_torch.ops import corr as corr_ops
-    from mvtracker_torch.ops import knn as knn_ops
+def launches(since: dict | None = None) -> dict:
+    """{kernel: launches} of the five kernels (`_cuda.SOURCES`), zeros
+    included: all so far, or those since `since`, an earlier reading."""
+    return {name: _cuda.launches[name] - (since[name] if since else 0) for name in _cuda.SOURCES}
 
-    return {"knn": knn_ops.knn_cuda, "knn_tiled": knn_ops.knn_tiled_cuda, "knn_exact": knn_ops.knn_exact_cuda,
-            "corr": corr_ops.corr_select_cuda, "corr_bwd": corr_ops.corr_select_backward_cuda}
+
+@contextlib.contextmanager
+def recording(module, name: str, calls: list, keep=lambda args, kw, out: args):
+    """Record what `keep` picks of each call of `module.name` into `calls`
+    while the block runs; the calls themselves are unchanged, and the
+    attribute is put back when the block ends, also when it raises."""
+    original = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        out = original(*args, **kw)
+        calls.append(keep(args, kw, out))
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, original)
 
 
 @contextlib.contextmanager
 def counted(flop_counter=None):
     """Count within the block. Yields a dict that holds, on exit:
     "calls": {"knn", "corr", "corr_bwd"} calls of the dispatchers;
-    "launches": {kernel: launches} of the five kernels;
+    "launches": {kernel: launches} of the five kernels, zeros included;
     "knn_shapes": (B, N, M, k) of every kNN call, "corr_shapes": (B, N, K, C)
     of every correlation call.
 
@@ -137,39 +192,38 @@ def counted(flop_counter=None):
     from mvtracker_torch.ops import corr as corr_ops
     from mvtracker_torch.ops import knn as knn_ops
 
-    out = {"calls": {"knn": 0, "corr": 0, "corr_bwd": 0}, "knn_shapes": [], "corr_shapes": [], "flops_inside": 0}
-    kernels = kernel_counters()
-    before = {name: fn.launches for name, fn in kernels.items()}
-    originals = {(knn_ops, "knn"): knn_ops.knn, (corr_ops, "corr_select"): corr_ops.corr_select,
-                 (corr_ops, "corr_select_backward"): corr_ops.corr_select_backward}
+    out = {"calls": {}, "knn_shapes": [], "corr_shapes": [], "flops_inside": 0}
+    corr_bwd = []
+    before = launches()
 
-    def wrap(fn, key, shape):
-        def counting(*args, **kwargs):
-            out["calls"][key] += 1
-            if shape is not None:
-                shape(*args)
-            flops0 = flop_counter.get_total_flops() if flop_counter is not None else 0
+    def knn_shape(args, kw, result):
+        ref, query = args[:2]
+        return ref.shape[0], ref.shape[1], query.shape[1], int(kw["k"] if "k" in kw else args[2])
+
+    def corr_shape(args, kw, result):
+        fvec, _, idx = args[:3]
+        return idx.shape[0], idx.shape[1], idx.shape[2], fvec.shape[-1]
+
+    def inside(fn):
+        def measured(*args, **kwargs):
+            flops0 = flop_counter.get_total_flops()
             result = fn(*args, **kwargs)
-            if flop_counter is not None:
-                out["flops_inside"] += flop_counter.get_total_flops() - flops0
+            out["flops_inside"] += flop_counter.get_total_flops() - flops0
             return result
-        return counting
+        return measured
 
-    def knn_shape(ref, query, k, *rest):
-        out["knn_shapes"].append((ref.shape[0], ref.shape[1], query.shape[1], int(k)))
-
-    def corr_shape(fvec, targets, idx, *rest):
-        out["corr_shapes"].append((idx.shape[0], idx.shape[1], idx.shape[2], fvec.shape[-1]))
-
-    knn_ops.knn = wrap(originals[(knn_ops, "knn")], "knn", knn_shape)
-    corr_ops.corr_select = wrap(originals[(corr_ops, "corr_select")], "corr", corr_shape)
-    corr_ops.corr_select_backward = wrap(originals[(corr_ops, "corr_select_backward")], "corr_bwd", None)
-    try:
-        yield out
-    finally:
-        for (module, name), fn in originals.items():
-            setattr(module, name, fn)
-        out["launches"] = {name: fn.launches - before[name] for name, fn in kernels.items()}
+    with contextlib.ExitStack() as stack:
+        if flop_counter is not None:
+            for module, name in ((knn_ops, "knn"), (corr_ops, "corr_select"), (corr_ops, "corr_select_backward")):
+                stack.enter_context(mock.patch.object(module, name, inside(getattr(module, name))))
+        stack.enter_context(recording(knn_ops, "knn", out["knn_shapes"], knn_shape))
+        stack.enter_context(recording(corr_ops, "corr_select", out["corr_shapes"], corr_shape))
+        stack.enter_context(recording(corr_ops, "corr_select_backward", corr_bwd, lambda a, kw, o: None))
+        try:
+            yield out
+        finally:
+            out["calls"] = {"knn": len(out["knn_shapes"]), "corr": len(out["corr_shapes"]), "corr_bwd": len(corr_bwd)}
+            out["launches"] = launches(before)
 
 
 def per_call(counts: dict, calls: int) -> dict:

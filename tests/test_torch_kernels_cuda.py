@@ -11,8 +11,10 @@ nothing of JAX, so it also runs where JAX is not installed:
 import pytest
 import torch
 
+from mvtracker_torch.ops import _cuda
 from mvtracker_torch.ops import corr as t_corr
 from mvtracker_torch.ops import knn as t_knn
+from scripts.timing_torch import recording
 
 pytestmark = pytest.mark.cuda
 
@@ -40,9 +42,9 @@ def gen():
 def test_knn_kernel_matches_plain(gen, b, n, m, k):
     ref = torch.randn(b, n, 3, generator=gen, device="cuda")
     query = torch.randn(b, m, 3, generator=gen, device="cuda")
-    before = t_knn.knn_cuda.launches
+    before = _cuda.launches["knn"]
     d, i = t_knn.knn(ref, query, k)
-    assert t_knn.knn_cuda.launches == before + 1
+    assert _cuda.launches["knn"] == before + 1
     dp, ip = t_knn.knn_plain(ref, query, k)
     torch.testing.assert_close(d, dp, rtol=KNN_RTOL, atol=KNN_ATOL)
     real = min(k, n)
@@ -61,9 +63,9 @@ def test_knn_tiled_kernel_matches_plain(gen, b, n, m, k):
     """The split-cloud kernel: several spans, one span, fewer points than k."""
     ref = torch.randn(b, n, 3, generator=gen, device="cuda")
     query = torch.randn(b, m, 3, generator=gen, device="cuda")
-    before = t_knn.knn_tiled_cuda.launches
+    before = _cuda.launches["knn_tiled"]
     d, i = t_knn.knn(ref, query, k, backend="tiled")
-    assert t_knn.knn_tiled_cuda.launches == before + 1
+    assert _cuda.launches["knn_tiled"] == before + 1
     dp, ip = t_knn.knn_plain(ref, query, k)
     torch.testing.assert_close(d, dp, rtol=KNN_RTOL, atol=KNN_ATOL)
     real = min(k, n)
@@ -79,10 +81,10 @@ def test_knn_tiled_kernel_matches_plain(gen, b, n, m, k):
 def test_knn_auto_takes_the_tiled_kernel_above_the_switch(gen):
     ref = torch.randn(1, t_knn.FUSED_MAX_POINTS + 1, 3, generator=gen, device="cuda")
     query = torch.randn(1, 5, 3, generator=gen, device="cuda")
-    fused, tiled = t_knn.knn_cuda.launches, t_knn.knn_tiled_cuda.launches
+    fused, tiled = _cuda.launches["knn"], _cuda.launches["knn_tiled"]
     t_knn.knn(ref, query, 4)
     t_knn.knn(ref[:, :-1].contiguous(), query, 4)
-    assert (t_knn.knn_cuda.launches, t_knn.knn_tiled_cuda.launches) == (fused + 1, tiled + 1)
+    assert (_cuda.launches["knn"], _cuda.launches["knn_tiled"]) == (fused + 1, tiled + 1)
 
 
 @pytest.mark.parametrize("b,n,m,k", [(1, 20000, 300, 16), (2, 4099, 33, 1), (2, 700, 17, 32), (2, 6, 11, 8)])
@@ -95,9 +97,9 @@ def test_knn_exact_kernel_equals_the_stable_sort(gen, b, n, m, k):
     query = torch.randn(b, m, 3, generator=gen, device="cuda")
     on_a_point = min(m // 2, len(copies))
     query[:, :on_a_point] = ref[:, copies[:on_a_point]]
-    before = t_knn.knn_exact_cuda.launches
+    before = _cuda.launches["knn_exact"]
     d, i = t_knn.knn(ref, query, k, backend="exact")
-    assert t_knn.knn_exact_cuda.launches == before + 1
+    assert _cuda.launches["knn_exact"] == before + 1
     dp, ip = t_knn.knn_exact_plain(ref, query, k)
     assert torch.equal(i, ip)
     torch.testing.assert_close(d, dp, rtol=1e-6, atol=0)
@@ -130,9 +132,9 @@ def test_corr_kernel_matches_plain(gen, dtype, targets_dtype, c, k):
     idx = torch.randint(0, p, (b, n, k), generator=gen, device="cuda")
     idx[:, 0::3, 0] = -1  # padding
     idx[:, 1::3, k - 1] = p  # out of range
-    before = t_corr.corr_select_cuda.launches
+    before = _cuda.launches["corr"]
     got = t_corr.corr_select(fvec, targets, idx)
-    assert t_corr.corr_select_cuda.launches == before + 1
+    assert _cuda.launches["corr"] == before + 1
     want = t_corr.corr_select_plain(fvec, targets, idx)
     torch.testing.assert_close(got, want, rtol=0, atol=CORR_ATOL[dtype])
     assert bool((got[:, 0::3, 0] == 0).all()) and bool((got[:, 1::3, k - 1] == 0).all())
@@ -203,10 +205,10 @@ def test_corr_backward_kernel_matches_plain(gen, monkeypatch, fvec_dtype, target
     elif pattern == "one_row":  # every query names row p // 2 at every rank
         idx[:] = p // 2
         g /= (n * k) ** 0.5  # sums of order 1, as at the other shapes
-    before = t_corr.corr_select_backward_cuda.launches
+    before = _cuda.launches["corr_bwd"]
     d_fvec, d_targets = t_corr.corr_select_backward(fvec, targets, idx, g)
     torch.cuda.synchronize()
-    assert t_corr.corr_select_backward_cuda.launches == before + 1
+    assert _cuda.launches["corr_bwd"] == before + 1
     want_fvec, want_targets = t_corr.corr_select_backward_plain(fvec, targets, idx, g)
     assert d_fvec.dtype == fvec_dtype and d_targets.dtype == targets_dtype
     assert d_fvec.shape == fvec.shape and d_targets.shape == targets.shape
@@ -233,9 +235,9 @@ def test_corr_select_autograd_on_the_card(gen):
     targets = torch.randn(b, n, c, generator=gen, device="cuda").requires_grad_()
     idx = torch.randint(0, p, (b, n, k), generator=gen, device="cuda")
     w = torch.randn(b, n, k, generator=gen, device="cuda")
-    f0, b0 = t_corr.corr_select_cuda.launches, t_corr.corr_select_backward_cuda.launches
+    f0, b0 = _cuda.launches["corr"], _cuda.launches["corr_bwd"]
     (t_corr.CorrSelect.apply(fvec, targets, idx, torch.bfloat16) * w).sum().backward()
-    assert (t_corr.corr_select_cuda.launches, t_corr.corr_select_backward_cuda.launches) == (f0 + 1, b0 + 1)
+    assert (_cuda.launches["corr"], _cuda.launches["corr_bwd"]) == (f0 + 1, b0 + 1)
     assert fvec.grad.dtype == torch.bfloat16 and targets.grad.dtype == torch.float32
     want_fvec, want_targets = t_corr.corr_select_backward_plain(fvec.detach(), targets.detach(), idx, w)
     torch.testing.assert_close(targets.grad, want_targets, rtol=0, atol=BWD_ATOL[torch.float32])
@@ -282,9 +284,10 @@ def test_knn_kernel_at_k24(gen, b, n, m):
     the predictor defaults' and the flagship's level-0 shapes."""
     ref = torch.rand(b, n, 3, generator=gen, device="cuda") * 4 - 2
     query = torch.randn(b, m, 3, generator=gen, device="cuda") * 0.5
-    before = t_knn.knn_cuda.launches_by_k.get(24, 0)
-    d, i = t_knn.knn(ref, query, 24)
-    assert t_knn.knn_cuda.launches_by_k[24] == before + 1
+    before, ks = _cuda.launches["knn"], []
+    with recording(t_knn, "knn", ks, keep=lambda args, kw, out: args[2]):
+        d, i = t_knn.knn(ref, query, 24)
+    assert ks == [24] and _cuda.launches["knn"] == before + 1
     dp, _ = t_knn.knn_plain(ref, query, 24)
     torch.testing.assert_close(d, dp, rtol=KNN_RTOL, atol=KNN_ATOL)
     pts = torch.gather(ref, 1, i.reshape(b, -1, 1).expand(-1, -1, 3)).reshape(b, m, 24, 3)

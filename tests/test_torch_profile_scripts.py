@@ -9,13 +9,16 @@ JAX profiling scripts) on the CPU at `bench_torch.py`'s narrow widths:
 - the sharded-kNN twin on 2 gloo ranks against the exact search;
 - the DROID twin's episode writer against the JAX test fixture, and its
   batch outputs against JAX's `process_episode`;
-- the supervisor with stubbed `python3` and `sleep`.
+- the supervisor with stubbed `python3` and `sleep`;
+- `timing_torch`'s call recorder and its counts of calls and launches.
 """
 
 import json
 import os
 import subprocess
 import sys
+import types
+from collections import Counter
 from pathlib import Path
 
 import h5py
@@ -26,7 +29,9 @@ import torch
 import bench_torch
 from mvtracker_torch.datasets import hdf5
 from mvtracker_torch.models.mvtracker import MVTracker
+from mvtracker_torch.ops import _cuda
 from mvtracker_torch.ops import corr as corr_ops
+from mvtracker_torch.ops import knn as knn_ops
 from mvtracker_tpu.droid import pipeline as j_pipe
 from mvtracker_tpu.models.mvtracker import MVTracker as JaxMVTracker
 from scripts import bench_droid_batch_torch as droid_batch
@@ -35,6 +40,7 @@ from scripts import profile_batched_serving_torch as batched
 from scripts import profile_knn_reuse_torch as reuse
 from scripts import profile_sharded_knn_torch as sharded
 from scripts import profile_torch_train_step as train_step
+from scripts import timing_torch
 from tests.test_droid import make_episode as jax_make_episode
 from tests.test_torch_droid import _same
 from tests.test_torch_modules import carried_weights
@@ -226,3 +232,53 @@ def test_scripts_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("raises", [False, True], ids=["returns", "raises"])
+def test_recording_keeps_what_it_picks_and_puts_the_attribute_back(raises):
+    module = types.SimpleNamespace(add=lambda a, b=0: a + b)
+    original, calls = module.add, []
+
+    def block():
+        with timing_torch.recording(module, "add", calls, keep=lambda args, kw, out: (args, kw.get("b"), out)):
+            assert module.add(1, b=2) == 3 and module.add(4) == 4
+            if raises:
+                raise ValueError("inside the block")
+
+    if raises:
+        with pytest.raises(ValueError, match="inside the block"):
+            block()
+    else:
+        block()
+    assert calls == [((1,), 2, 3), ((4,), None, 4)]
+    assert module.add is original
+
+
+def test_counted_reports_the_launches_made_inside_the_block(monkeypatch):
+    """The launch counts are the change of `_cuda.launches` over the block,
+    every kernel named, zeros too; earlier launches are not counted."""
+    monkeypatch.setattr(_cuda, "launches", Counter({"knn": 5, "corr": 2}))
+    with timing_torch.counted() as counts:
+        _cuda.launches["knn"] += 3
+        _cuda.launches["corr_bwd"] += 1
+    assert counts["launches"] == {"knn": 3, "knn_tiled": 0, "knn_exact": 0, "corr": 0, "corr_bwd": 1}
+    assert list(counts["launches"]) == list(_cuda.SOURCES)
+    assert timing_torch.launches() == {"knn": 8, "knn_tiled": 0, "knn_exact": 0, "corr": 2, "corr_bwd": 1}
+
+
+def test_counted_sees_the_dispatchers_calls_and_the_flops_inside():
+    """On CPU tensors: the dispatchers' calls and shapes, the flops of their
+    plain versions, no launch; the dispatchers are put back afterwards."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    ref, query = torch.rand(2, 30, 3), torch.rand(2, 7, 3)
+    fvec, targets = torch.rand(2, 30, 8), torch.rand(2, 7, 8)
+    dispatchers = (knn_ops.knn, corr_ops.corr_select, corr_ops.corr_select_backward)
+    with FlopCounterMode(display=False) as flops, timing_torch.counted(flops) as counts:
+        _, idx = knn_ops.knn(ref, query, 4)
+        corr_ops.corr_select(fvec, targets, idx)
+    assert counts["calls"] == {"knn": 1, "corr": 1, "corr_bwd": 0}
+    assert counts["knn_shapes"] == [(2, 30, 7, 4)] and counts["corr_shapes"] == [(2, 7, 4, 8)]
+    assert 0 < counts["flops_inside"] == flops.get_total_flops()
+    assert not any(counts["launches"].values())
+    assert (knn_ops.knn, corr_ops.corr_select, corr_ops.corr_select_backward) == dispatchers

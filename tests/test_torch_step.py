@@ -392,12 +392,12 @@ def test_gradient_reaches_the_previous_window(fp32):
     recorded = []
     inner = model.forward_iteration
 
-    def recording(*args, **kwargs):
+    def kept_iteration(*args, **kwargs):
         out = inner(*args, **kwargs)
         recorded.append(out)
         return out
 
-    model.forward_iteration = recording
+    model.forward_iteration = kept_iteration
     try:
         model.zero_grad(set_to_none=True)
         total, _ = t_step.scene_loss(model, scene, ITERS, GAMMA, VIS_WEIGHT)

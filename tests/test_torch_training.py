@@ -140,7 +140,7 @@ def test_checkpoint_resume_and_keep(tmp_path):
     seen = []
     real = t2._get_step_fn
 
-    def recording(iters):
+    def checked_step_fn(iters):
         fn = real(iters)
 
         def stepper(state, batch):
@@ -155,7 +155,7 @@ def test_checkpoint_resume_and_keep(tmp_path):
 
         return stepper
 
-    t2._get_step_fn = recording
+    t2._get_step_fn = checked_step_fn
     state2 = t2.fit(iter(tiny_loader()), max_steps=16)
     assert seen == list(range(5, 16)) and state2.step == 16
     assert t2.checkpoint_steps() == [10, 15]  # keep_ckpts newest

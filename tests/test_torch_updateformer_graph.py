@@ -9,6 +9,8 @@ eager stand-in for the graph; and the benchmark's reader of the replay
 share. The graph itself runs on the card:
 `tests/test_torch_updateformer_graph_cuda.py`."""
 
+import copy
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -88,6 +90,21 @@ def test_engages_only_where_a_replay_is_the_eager_call(case):
             assert graph.depth == 0
     assert got is expected
     assert graph.input_buffer((1, 4, 2, 3), torch.float32, torch.device("cpu")) is None
+
+
+def test_a_copy_of_a_served_model_starts_with_no_graph(model):
+    """After a forward on the card the transformer's `CallGraph` holds a
+    stream, a pool and a graph, none of which copies (a lock stands in for
+    them here); `copy.deepcopy` of the model gives a fresh one instead."""
+    graph = model.updateformer.graph
+    graph.stream = threading.Lock()
+    try:
+        copied = copy.deepcopy(model)
+    finally:
+        graph.stream = None
+    fresh = copied.updateformer.graph
+    assert fresh is not graph and fresh.name == graph.name
+    assert fresh.stream is fresh.graph is fresh.key is None and fresh.depth == 0
 
 
 @pytest.mark.parametrize("mode", ["no_grad", "autograd", "flop_counter"])

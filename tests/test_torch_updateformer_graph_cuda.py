@@ -10,6 +10,8 @@ nothing of JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_updateformer_graph_cuda.py
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -114,3 +116,6 @@ def test_a_forward_leaves_no_device_memory_and_counts_like_eager(card):
     assert names.count("mvtracker::transformer_capture") == 1
     assert names.count("mvtracker::transformer_replay") == calls - 1
     assert torch.equal(traj, eager["traj"].cpu()) and torch.equal(vis, eager["vis"].cpu())
+    # A served model copies (as `copy.deepcopy(model).cpu()` does for a CPU
+    # reference); the copy starts with no graph of its own.
+    assert copy.deepcopy(model).cpu().updateformer.graph.graph is None

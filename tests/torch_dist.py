@@ -76,17 +76,16 @@ def tracker_forward(rank, world, n_model, cfg, state_dict, scene, min_points, it
     from mvtracker_torch.models.mvtracker import MVTracker
     from mvtracker_torch.ops import knn as knn_ops
     from mvtracker_torch.parallel.mesh import make_mesh
+    from scripts.timing_torch import recording
 
-    calls = {"gather": 0, "ring": 0}
-    for name, attr in (("gather", "knn_sharded"), ("ring", "knn_sharded_ring")):
-        def counted(*a, _fn=getattr(knn_ops, attr), _name=name, **kw):
-            calls[_name] += 1
-            return _fn(*a, **kw)
-        setattr(knn_ops, attr, counted)
     mesh = make_mesh(world // n_model, n_model, backend="gloo")
     model = MVTracker(**cfg, knn_mesh=mesh, knn_shard_min_points=min_points, device="cpu").eval()
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()})
-    out = model(*scene, iters=iters)
+    ran = []
+    with recording(knn_ops, "knn_sharded", ran, lambda a, kw, o: "gather"), \
+            recording(knn_ops, "knn_sharded_ring", ran, lambda a, kw, o: "ring"):
+        out = model(*scene, iters=iters)
+    calls = {name: ran.count(name) for name in ("gather", "ring")}
     return {"traj": out["traj"].numpy(), "vis": out["vis"].numpy(), "calls": calls}
 
 
